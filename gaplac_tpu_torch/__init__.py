@@ -1,0 +1,18 @@
+"""gaplac_tpu_torch — the PyTorch/CUDA port of ``gaplac_tpu``.
+
+The package mirrors ``gaplac_tpu``'s module paths so each counterpart is
+easy to find, and is held against it by the ``tests/test_torch_*.py``
+parity tests.  It imports ``torch`` and never ``jax``: the formula DSL
+(``gaplac_tpu.dsl``) and the table I/O (``gaplac_tpu.data``) are JAX-free
+and are reused by import.
+
+On a CUDA device the dense hot path (gram, its backward, the batched
+Cholesky) runs through the hand-written kernels in ``csrc/``; on the CPU
+the same wrappers run their plain PyTorch versions.
+"""
+
+__version__ = "0.1.0"
+
+from gaplac_tpu.dsl.parser import Spec, parse_formula  # noqa: E402  (JAX-free)
+
+__all__ = ["parse_formula", "Spec", "__version__"]

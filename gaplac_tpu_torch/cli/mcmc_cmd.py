@@ -1,0 +1,335 @@
+"""`mcmc` command: posterior over kernel hyperparameters on the dense exact
+model (port of ``gaplac_tpu/cli/mcmc_cmd.py``).
+
+Same model defaults as the reference (prior Uniform(0,20), latent jitter 0.1,
+obs sigma 1, one shared scalar for all --infer vars), the same chain-table
+schema, and ``--checkpoint/--resume`` in the same ``.npz`` format, so a
+checkpoint written by ``gaplac_tpu`` resumes here and the other way round.
+Gaussian likelihoods are marginalized unless ``--no-marginalize``.
+NUTS chains run one after another; ChEES moves all chains in lockstep.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import sys
+import time
+
+import numpy as np
+import pandas as pd
+import torch
+
+from gaplac_tpu.data import df_output, load_tables, read_table
+from gaplac_tpu.dsl import parse_formula
+from gaplac_tpu_torch.cli.common import (
+    apply_outlier_policy,
+    column_values,
+    design_matrix,
+    resolve_hyper_columns,
+    response_vector,
+)
+from gaplac_tpu_torch.inference.diagnostics import summarize
+from gaplac_tpu_torch.inference.model import build_model
+from gaplac_tpu_torch.inference.nuts import run_nuts
+from gaplac_tpu_torch.inference.priors import parse_prior
+from gaplac_tpu_torch.kernels.covariance import compile_formula
+from gaplac_tpu_torch.runtime import Runtime
+
+log = logging.getLogger("gaplac")
+
+HYPER_COL = "ℓ"  # reference chain schema (Turing's ℓ column)
+
+#: report draws per batched call: bounds the (B, n, n) buffers of the report
+REPORT_BATCH = 64
+
+
+def _check_ported(args) -> None:
+    unported = []
+    if args.sampler in ("hmc", "advi"):
+        unported.append(f"--sampler {args.sampler}")
+    if args.approx != "none":
+        unported.append(f"--approx {args.approx}")
+    for flag, on in (("--segments", args.segments is not None), ("--plot", args.plot),
+                     ("--check-numerics", args.check_numerics),
+                     ("--sde-harmonics", args.sde_harmonics is not None),
+                     ("--sde-rq-nodes", args.sde_rq_nodes is not None),
+                     ("--sde-soa-max-d", args.sde_soa_max_d is not None)):
+        if on:
+            unported.append(flag)
+    if unported:
+        raise NotImplementedError(f"{', '.join(unported)}: not yet ported to gaplac_tpu_torch")
+
+
+def _progress(enabled: bool):
+    """A ``progress(phase, i, total)`` printing about every 5% to stderr."""
+    if not enabled:
+        return None
+
+    def emit(phase, i, total):
+        stride = max(1, total // 20)
+        done = i + 1
+        if done % stride == 0 or done == total:
+            end = "\n" if done >= total else ""
+            print(f"\r[{phase}] {done}/{total}", end=end, file=sys.stderr, flush=True)
+
+    return emit
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run(args, rt: Runtime) -> None:
+    log.info("running 'mcmc'")
+    _check_ported(args)
+    spec = parse_formula(args.formula)
+    df = apply_outlier_policy(load_tables(args.data), args, spec.response)
+    ck = compile_formula(spec.formula)
+    inferable = list(args.infer or [])
+    infer_extras = list(args.infer_extra or [])
+    if not inferable and not infer_extras:
+        raise ValueError("mcmc needs --infer and/or --infer-extra")
+
+    device, dtype = rt
+    y = torch.tensor(response_vector(df, spec), dtype=dtype, device=device)
+    X = torch.tensor(design_matrix(df, ck), dtype=dtype, device=device)
+    aux = None
+    if spec.likelihood.colref is not None:
+        aux = torch.tensor(column_values(df, spec.likelihood.colref), dtype=dtype,
+                           device=device)
+    model = build_model(
+        ck, inferable, X, y, spec.likelihood, aux=aux, jitter=args.jitter,
+        prior_bounds=parse_prior(args.prior), shared_hyper=args.infer_mode == "shared",
+        marginalize=not args.no_marginalize, infer_extras=infer_extras,
+    )
+    log.info("model: %s, sampler dim %d, n=%d obs",
+             "marginalized" if model.marginalized else "whitened latent", model.dim, y.shape[0])
+
+    num_samples = args.samples
+    num_warmup = args.warmup if args.warmup is not None else max(num_samples, 200)
+    if args.burnin and args.burnin >= num_samples:
+        raise ValueError(
+            f"--burnin ({args.burnin}) must be smaller than --samples "
+            f"({num_samples}); no draws would remain"
+        )
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    if args.sampler == "chees":
+        _run_chees_path(args, model, y, num_samples, num_warmup, gen, rt)
+        return
+
+    n_chains = args.chains
+    init_positions = model.initial_position(gen, n_chains)
+    resume_state = None
+    if args.resume:
+        if args.resume.endswith((".tsv", ".csv")):
+            init_positions = _resume_from_chain(args.resume, model, n_chains)
+            num_warmup = min(num_warmup, 100)
+            log.info("extending chain %s (reduced warmup %d)", args.resume, num_warmup)
+        else:
+            resume_state = _load_checkpoint(args.resume, n_chains, model.dim)
+            init_positions = torch.as_tensor(resume_state["positions"], dtype=dtype,
+                                             device=device)
+            num_warmup = 0
+            log.info("resuming from %s (warmup skipped)", args.resume)
+
+    def chain_density(q):
+        return model.logdensity(q[None])[0]
+
+    progress = _progress(args.progress and n_chains == 1)
+    t0 = time.time()
+    results = []
+    for c in range(n_chains):
+        eps0 = im0 = None
+        if resume_state is not None:
+            eps0 = float(resume_state["step_size"])
+            im = np.asarray(resume_state["inv_mass"])
+            im0 = torch.as_tensor(im[c] if im.ndim == 2 else im, dtype=dtype, device=device)
+        results.append(run_nuts(
+            gen, chain_density, init_positions[c], num_samples, num_warmup=num_warmup,
+            max_depth=args.max_depth, target_accept=args.target_accept,
+            initial_step_size=eps0, initial_inv_mass=im0, progress=progress,
+        ))
+    _sync(device)
+    elapsed = time.time() - t0
+    total = n_chains * (num_samples + num_warmup)
+    log.info("sampling done in %.2fs (%.1f transitions/s; %d divergences)", elapsed,
+             total / elapsed, int(sum(r.diverging.sum() for r in results)))
+
+    sl = slice(args.burnin, None, args.thin)
+    positions = torch.stack([r.positions for r in results])[:, sl]
+    accepts = np.stack([r.accept_prob for r in results])[:, sl]
+    depths = np.stack([r.depths for r in results])[:, sl]
+    divs = np.stack([r.diverging for r in results])[:, sl]
+
+    thetas, fs, lps = _chain_report(model, gen, positions, want_latents=not args.no_latents)
+    if args.checkpoint:
+        _save_checkpoint(args.checkpoint, positions,
+                         step_size=np.asarray([r.step_size for r in results]),
+                         inv_mass=torch.stack([r.inv_mass for r in results]))
+        log.info("checkpoint written to %s", args.checkpoint)
+    _emit_chains(args, model, y.shape[0], thetas, fs, lps, accepts=accepts, depths=depths,
+                 divs=divs)
+
+
+def _chain_report(model, gen, positions, want_latents=True):
+    """(chains, draws, dim) positions -> numpy thetas, latents, lps, in
+    batches of REPORT_BATCH draws."""
+    C, kept, dim = positions.shape
+    flat = positions.reshape(C * kept, dim)
+    parts = [model.report(gen, flat[i:i + REPORT_BATCH])
+             for i in range(0, C * kept, REPORT_BATCH)]
+
+    def cat(k):
+        if not parts:
+            return np.zeros((C, kept) + ((model.n_hyper,) if k == 0 else ()))
+        t = torch.cat([p[k] for p in parts])
+        return t.cpu().numpy().reshape((C, kept) + tuple(t.shape[1:]))
+
+    return cat(0), (cat(1) if want_latents else None), cat(2)
+
+
+def _emit_chains(args, model, n_obs, thetas, fs, lps, accepts=None, depths=None, divs=None,
+                 step_size=None, traj_length=None):
+    """Write the reference-schema chain table and print the posterior summary.
+
+    thetas (chains, draws, n_hyper), fs (chains, draws, n), lps (chains,
+    draws); NUTS adds per-draw ``depths``/``divs``, ChEES the adapted
+    ``step_size`` and ``traj_length`` as scalar-repeat columns.
+    """
+    n_chains, kept = lps.shape
+    frames = []
+    for c in range(n_chains):
+        cols = {
+            "iteration": np.arange(1, kept + 1),
+            "chain": np.full(kept, c + 1),
+            HYPER_COL: thetas[c, :, 0],
+        }
+        for g in range(1, model.n_hyper):
+            cols[f"{HYPER_COL}_{g+1}"] = thetas[c, :, g]
+        if not getattr(args, "no_latents", False):
+            for i in range(n_obs):
+                cols[f"fx[{i+1}]"] = fs[c, :, i]
+        cols["lp"] = lps[c]
+        if accepts is not None:
+            cols["acceptance_rate"] = accepts[c]
+        if depths is not None:
+            cols["tree_depth"] = depths[c]
+        if divs is not None:
+            cols["numerical_error"] = divs[c].astype(int)
+        if step_size is not None:
+            cols["step_size"] = np.full(kept, float(step_size))
+        if traj_length is not None:
+            cols["traj_length"] = np.full(kept, float(traj_length))
+        frames.append(pd.DataFrame(cols))
+    chain_df = pd.concat(frames, ignore_index=True)
+    df_output(chain_df, args.output)
+
+    for g in range(model.n_hyper):
+        name = HYPER_COL if g == 0 else f"{HYPER_COL}_{g+1}"
+        s = summarize(name, thetas[:, :, g])
+        log.info("%s: mean %.4f  sd %.4f  5%%..95%% [%.3f, %.3f]  Rhat %.3f  ESS %.0f",
+                 name, s["mean"], s["std"], s["q5"], s["q95"], s["rhat"], s["ess"])
+        print(
+            f"posterior {name}: mean {s['mean']:.4f} sd {s['std']:.4f} "
+            f"[{s['q5']:.3f}, {s['q95']:.3f}]"
+            + (f" Rhat {s['rhat']:.3f} ESS {s['ess']:.0f}" if n_chains > 1 else "")
+        )
+
+
+def _run_chees_path(args, model, y, num_samples, num_warmup, gen, rt: Runtime):
+    """--sampler chees: all chains in lockstep (inference/chees.py)."""
+    from gaplac_tpu_torch.inference.chees import run_chees
+
+    device, dtype = rt
+    n_chains = args.chains
+    if n_chains < 4:
+        log.warning("ChEES adapts its trajectory length from cross-chain statistics; "
+                    "--chains %d is small, using 8", n_chains)
+        n_chains = max(n_chains, 8)
+    q0 = model.initial_position(gen, n_chains)
+    eps0, t_len0, im0 = 0.1, 1.0, None
+    if args.resume:
+        if args.resume.endswith((".tsv", ".csv")):
+            q0 = _resume_from_chain(args.resume, model, n_chains)
+            num_warmup = min(num_warmup, 100)
+            log.info("extending chain %s (reduced warmup %d)", args.resume, num_warmup)
+        else:
+            state = _load_checkpoint(args.resume, n_chains, model.dim)
+            q0 = torch.as_tensor(state["positions"], dtype=dtype, device=device)
+            eps0 = float(np.mean(np.asarray(state["step_size"])))
+            im = np.asarray(state["inv_mass"])
+            im0 = torch.as_tensor(im.mean(0) if im.ndim == 2 else im, dtype=dtype,
+                                  device=device)
+            t_len0 = float(np.mean(np.asarray(state.get("traj_length", t_len0))))
+            num_warmup = 0
+            log.info("resuming from %s (warmup skipped)", args.resume)
+
+    t0 = time.time()
+    res = run_chees(gen, model.logdensity, q0, num_samples, num_warmup=num_warmup,
+                    target_accept=args.target_accept, init_step_size=eps0,
+                    init_traj_length=t_len0, init_inv_mass=im0,
+                    progress=_progress(args.progress))
+    _sync(device)
+    elapsed = time.time() - t0
+    total = n_chains * (num_samples + num_warmup)
+    log.info("chees: %d chains x %d transitions in %.2fs (%.1f transitions/s; eps %.4f, "
+             "T %.3f, accept %.2f)", n_chains, num_samples + num_warmup, elapsed,
+             total / elapsed, res.step_size, res.traj_length,
+             float(res.accept_prob.mean()) if res.accept_prob.numel() else float("nan"))
+
+    sl = slice(args.burnin, None, args.thin)
+    positions = res.positions[:, sl]
+    thetas, fs, lps = _chain_report(model, gen, positions, want_latents=not args.no_latents)
+    if args.checkpoint:
+        _save_checkpoint(args.checkpoint, positions, step_size=np.asarray(res.step_size),
+                         inv_mass=res.inv_mass, traj_length=np.asarray(res.traj_length))
+        log.info("checkpoint written to %s", args.checkpoint)
+    _emit_chains(args, model, y.shape[0], thetas, fs, lps,
+                 accepts=res.accept_prob[:, sl].cpu().numpy(), step_size=res.step_size,
+                 traj_length=res.traj_length)
+
+
+def _resume_from_chain(path: str, model, n_chains: int) -> torch.Tensor:
+    """Warm-start positions from a previous chain table's last row(s)."""
+    df = read_table(path)
+    hyper_cols = resolve_hyper_columns(df, model.n_hyper, path)
+    fx_cols = sorted((c for c in df.columns if c.startswith("fx[")), key=lambda c: int(c[3:-1]))
+    groups = [g for _, g in df.groupby("chain", sort=True)] if "chain" in df.columns else [df]
+    positions = []
+    for c in range(n_chains):
+        row = groups[c % len(groups)].iloc[-1]
+        theta = row[hyper_cols].to_numpy(dtype=float)
+        f = row[fx_cols].to_numpy(dtype=float) if fx_cols else np.zeros((0,))
+        positions.append(model.position_from(torch.as_tensor(theta), torch.as_tensor(f)))
+    return torch.stack(positions)
+
+
+def _save_checkpoint(path: str, positions: torch.Tensor, step_size, inv_mass,
+                     traj_length=None) -> None:
+    """The ``gaplac_tpu`` checkpoint: the last kept position per chain, the
+    adapted step size and mass (per chain for NUTS), and ChEES's T."""
+    extra = {} if traj_length is None else {"traj_length": np.asarray(traj_length)}
+    np.savez(path, positions=positions[:, -1].cpu().numpy(), step_size=np.asarray(step_size),
+             inv_mass=inv_mass.cpu().numpy(), **extra)
+
+
+def _load_checkpoint(path: str, n_chains: int, dim: int) -> dict:
+    if not path.endswith(".npz") and os.path.exists(path + ".npz"):
+        path = path + ".npz"
+    z = np.load(path)
+    pos = z["positions"]
+    if pos.shape != (n_chains, dim):
+        raise ValueError(
+            f"Checkpoint shape {pos.shape} does not match --chains {n_chains} "
+            f"and model dim {dim}"
+        )
+    out = {
+        "positions": pos,
+        "step_size": np.mean(z["step_size"]),
+        "inv_mass": z["inv_mass"],
+    }
+    if "traj_length" in z.files:
+        out["traj_length"] = np.asarray(z["traj_length"])
+    return out

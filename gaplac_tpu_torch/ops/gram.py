@@ -1,0 +1,242 @@
+"""Batched gram and its backward: kernels K2 and K2b (``csrc/gram.cu``).
+
+K2 replaces the Pallas tiled gram ``gaplac_tpu/ops/gram.py::
+_make_gram_kernel``; K2b, its backward to the hyperparameters, is new (the
+Pallas kernel had no VJP, and ``gaplac_tpu`` differentiated the plain jnp
+gram instead).  Beside each kernel is its plain PyTorch version:
+``gram_plain`` evaluates the formula leaf by leaf as
+``CompiledKernel.gram``/``bind`` do in ``gaplac_tpu``, and ``gram_bwd_plain``
+writes out the closed-form leaf derivatives that K2b implements (not
+autograd, so it checks K2b's formulas).  ``GramBound`` wires both into
+autograd.  A CPU tensor takes the plain version; a CUDA tensor launches the
+kernel or raises.
+"""
+
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+from typing import Optional
+
+import numpy as np
+import torch
+
+from gaplac_tpu_torch.kernels.covariance import (
+    _SQRT3,
+    _SQRT5,
+    CompiledKernel,
+    K_CONST,
+    K_LINEAR,
+    K_MATERN32,
+    K_MATERN52,
+    K_NOISE,
+    K_OU,
+    K_PERIODIC,
+    K_RQ,
+    K_SQEXP,
+    _leaf_cross,
+)
+from gaplac_tpu_torch.ops import _build
+
+_MAX_LEAVES, _MAX_TERMS, _MAX_PARAMS, _MAX_TERM_LEAVES = 32, 32, 64, 8
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _leaf_inputs(ck: CompiledKernel, li: int, params, X1, X2, symmetric):
+    """(x1, x2, p, e) for leaf ``li``; p, e shaped (C, 1, 1).  Bare leaves key
+    on row identity; in a cross gram their ids never match."""
+    col = ck.cols[li]
+    if col >= 0:
+        x1, x2 = X1[:, col], X2[:, col]
+    else:
+        x1 = torch.arange(X1.shape[0], dtype=X1.dtype, device=X1.device)
+        x2 = (torch.arange(X2.shape[0], dtype=X1.dtype, device=X1.device) if symmetric
+              else torch.full((X2.shape[0],), -1.0, dtype=X1.dtype, device=X1.device))
+    p = params[:, li, None, None]
+    es = ck.extra_slots[li]
+    e = params[:, es[0], None, None] if es else None
+    return x1, x2, p, e
+
+
+def gram_plain(ck: CompiledKernel, params: torch.Tensor, X1: torch.Tensor,
+               X2: Optional[torch.Tensor] = None, diag: float = 0.0) -> torch.Tensor:
+    """params (C, n_params) -> (C, n1, n2); ``diag`` on i == j when symmetric."""
+    symmetric = X2 is None
+    X2v = X1 if symmetric else X2
+    C, n1, n2 = params.shape[0], X1.shape[0], X2v.shape[0]
+    K = torch.zeros((C, n1, n2), dtype=params.dtype, device=params.device)
+    for term in ck.terms:
+        block = None
+        for li in term:
+            x1, x2, p, e = _leaf_inputs(ck, li, params, X1, X2v, symmetric)
+            b = _leaf_cross(ck.kinds[li], x1, x2, p, e)
+            block = b if block is None else block * b
+        K = K + block
+    if symmetric and diag:
+        K = K + diag * torch.eye(n1, dtype=K.dtype, device=K.device)
+    return K
+
+
+def _leaf_dcross(kind, x1, x2, p, e, b):
+    """Closed-form (d leaf/d p, d leaf/d e or None) given the leaf value b."""
+    d = x1[:, None] - x2[None, :]
+    if kind == K_SQEXP:
+        return b * d * d / (p * p * p), None
+    if kind == K_OU:
+        return b * torch.abs(d) / (p * p), None
+    if kind in (K_LINEAR, K_CONST):
+        return torch.ones_like(b), None
+    if kind == K_NOISE:
+        return (d == 0).to(b.dtype).expand_as(b), None
+    if kind == K_MATERN32:
+        r = _SQRT3 * torch.abs(d) / p
+        return r * r * torch.exp(-r) / p, None
+    if kind == K_MATERN52:
+        r = _SQRT5 * torch.abs(d) / p
+        return r * r * (1.0 + r) * torch.exp(-r) / (3.0 * p), None
+    if kind == K_PERIODIC:
+        a = math.pi * d / e
+        sn = torch.sin(a)
+        return (b * 4.0 * sn * sn / (p * p * p),
+                b * (2.0 / (p * p)) * torch.sin(2.0 * a) * a / e)
+    if kind == K_RQ:
+        t = d * d / (2.0 * e * p * p)
+        return b * 2.0 * e * t / (p * (1.0 + t)), b * (t / (1.0 + t) - torch.log1p(t))
+    return None, None  # Cat: no hyperparameter
+
+
+def gram_bwd_plain(ck: CompiledKernel, params: torch.Tensor, X1: torch.Tensor,
+                   X2: Optional[torch.Tensor], gK: torch.Tensor) -> torch.Tensor:
+    """dparams[c, s] = sum_ij gK[c,i,j] dK[c,i,j]/dparams[c,s], (C, n_params)."""
+    symmetric = X2 is None
+    X2v = X1 if symmetric else X2
+    cols = [torch.zeros(params.shape[0], dtype=params.dtype, device=params.device)
+            for _ in range(params.shape[1])]
+    for term in ck.terms:
+        ins = [_leaf_inputs(ck, li, params, X1, X2v, symmetric) for li in term]
+        vals = [_leaf_cross(ck.kinds[li], *a) for li, a in zip(term, ins)]
+        for k, li in enumerate(term):
+            w = gK
+            for m, v in enumerate(vals):
+                if m != k:
+                    w = w * v
+            dp, de = _leaf_dcross(ck.kinds[li], *ins[k], vals[k])
+            if dp is not None:
+                cols[li] = cols[li] + (w * dp).sum(dim=(1, 2))
+            if de is not None:
+                s = ck.extra_slots[li][0]
+                cols[s] = cols[s] + (w * de).sum(dim=(1, 2))
+    return torch.stack(cols, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+
+
+def descriptor(ck: CompiledKernel) -> np.ndarray:
+    """int32 formula table for K2/K2b:
+    kind[L] col[L] extra[L] term_ptr[NT + 1] term_leaf[sum of term lengths]."""
+    L, NT = ck.n_leaves, len(ck.terms)
+    if (L > _MAX_LEAVES or NT > _MAX_TERMS or ck.n_params > _MAX_PARAMS
+            or max(len(t) for t in ck.terms) > _MAX_TERM_LEAVES):
+        raise ValueError(f"formula too large for the gram kernel ({L} leaves, {NT} terms, "
+                         f"{ck.n_params} params; limits {_MAX_LEAVES}/{_MAX_TERMS}/"
+                         f"{_MAX_PARAMS}, {_MAX_TERM_LEAVES} leaves per term)")
+    for li, (kind, col) in enumerate(zip(ck.kinds, ck.cols)):
+        if col < 0 and kind not in (K_NOISE, K_CONST):
+            raise ValueError(f"leaf {li}: only Noise and Constant may lack a column")
+    extra = [es[0] if es else -1 for es in ck.extra_slots]
+    ptr = np.cumsum([0] + [len(t) for t in ck.terms])
+    flat = [li for t in ck.terms for li in t]
+    return np.asarray(list(ck.kinds) + list(ck.cols) + extra + list(ptr) + flat, np.int32)
+
+
+@lru_cache(maxsize=64)
+def _device_descriptor(ck: CompiledKernel, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(descriptor(ck)).to(device)
+
+
+def _gram_args(ck, params, X1, X2, what):
+    symmetric = X2 is None
+    X2v = X1 if symmetric else X2
+    dtype = _build.require_cuda(what, params, X1, X2v)
+    C, P = params.shape
+    d = len(ck.varnames)
+    if P != ck.n_params or X1.dim() != 2 or X2v.dim() != 2 or X1.shape[1] != d \
+            or X2v.shape[1] != d:
+        raise ValueError(f"{what}: params (C, {ck.n_params}) and X (n, {d}) expected, got "
+                         f"{tuple(params.shape)}, {tuple(X1.shape)}, {tuple(X2v.shape)}")
+    if C > 65535 or max(X1.shape[0], X2v.shape[0]) > 16 * 65535:
+        raise ValueError(f"{what}: batch or size beyond the launch grid")
+    desc = _device_descriptor(ck, params.device)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    head = (desc.data_ptr(), ck.n_leaves, len(ck.terms), X1.data_ptr(), X2v.data_ptr(),
+            X1.shape[0], X2v.shape[0], d, params.data_ptr(), C, P)
+    return sfx, head, symmetric, X2v
+
+
+def gram_cuda(ck: CompiledKernel, params: torch.Tensor, X1: torch.Tensor,
+              X2: Optional[torch.Tensor] = None, diag: float = 0.0) -> torch.Tensor:
+    """K2: params (C, n_params) -> (C, n1, n2) on the card."""
+    lib = _build.library()
+    sfx, head, symmetric, X2v = _gram_args(ck, params, X1, X2, "gram (K2)")
+    out = torch.empty((params.shape[0], X1.shape[0], X2v.shape[0]), dtype=params.dtype,
+                      device=params.device)
+    err = getattr(lib, f"gaplac_gram_fwd_{sfx}")(
+        *head, float(diag), int(symmetric), out.data_ptr(), params.device.index or 0,
+        _build.stream_of(params))
+    _build.check(err, "gram (K2)")
+    _build.counts["K2"] += 1
+    return out
+
+
+def gram_bwd_cuda(ck: CompiledKernel, params: torch.Tensor, X1: torch.Tensor,
+                  X2: Optional[torch.Tensor], gK: torch.Tensor) -> torch.Tensor:
+    """K2b: the (C, n_params) gradient of <gK, K(params)> on the card."""
+    lib = _build.library()
+    sfx, head, symmetric, X2v = _gram_args(ck, params, X1, X2, "gram backward (K2b)")
+    _build.require_cuda("gram backward (K2b)", params, gK)
+    if gK.shape != (params.shape[0], X1.shape[0], X2v.shape[0]):
+        raise ValueError(f"gram backward (K2b): gK of shape {tuple(gK.shape)}")
+    dparams = torch.zeros_like(params)
+    err = getattr(lib, f"gaplac_gram_bwd_{sfx}")(
+        *head, int(symmetric), gK.data_ptr(), dparams.data_ptr(), params.device.index or 0,
+        _build.stream_of(params))
+    _build.check(err, "gram backward (K2b)")
+    _build.counts["K2b"] += 1
+    return dparams
+
+
+def gram(ck, params, X1, X2=None, diag=0.0):
+    """Forward gram by device: K2 on CUDA, the plain version on the CPU."""
+    if params.is_cuda:
+        return gram_cuda(ck, params, X1, X2, diag)
+    return gram_plain(ck, params, X1, X2, diag)
+
+
+def gram_bwd(ck, params, X1, X2, gK):
+    if params.is_cuda:
+        return gram_bwd_cuda(ck, params, X1, X2, gK)
+    return gram_bwd_plain(ck, params, X1, X2, gK)
+
+
+class GramBound(torch.autograd.Function):
+    """params (C, n_params) -> K (C, n1, n2) = gram + diag I (symmetric),
+    differentiable in params through K2b (CUDA) or its plain version."""
+
+    @staticmethod
+    def forward(ctx, params, ck, X1, X2, diag):
+        params = params.contiguous()
+        ctx.ck, ctx.X1, ctx.X2 = ck, X1, X2
+        ctx.save_for_backward(params)
+        return gram(ck, params, X1, X2, diag)
+
+    @staticmethod
+    def backward(ctx, gK):
+        (params,) = ctx.saved_tensors
+        return gram_bwd(ctx.ck, params, ctx.X1, ctx.X2, gK.contiguous()), None, None, None, None
