@@ -2,24 +2,33 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``gaplac_tpu_torch/csrc``, holds each
-against its plain PyTorch version at the shapes of the main path, times
-both, then drives the main path through the CLI entry point
-(``gaplac_tpu_torch.cli.main.main``) on the card:
+Builds the port's CUDA kernels from ``gaplac_tpu_torch/csrc`` (one nvcc per
+source, all started together), holds each against its plain PyTorch version
+at the shapes of the main paths, times both beside the one PyTorch call that
+computes the same function where there is one, then drives two paths through
+the CLI entry point (``gaplac_tpu_torch.cli.main.main``) on the card, the
+kernels' launch counts set to 0 just before each and read just after:
 
-1. ``mcmc "y ~| SqExp(:x)" --infer x``: NUTS on the marginal model, n = 500;
-2. ``mcmc --no-marginalize --sampler chees --chains 8``: the whitened model,
-   dim 501, 8 chains in lockstep.
+1. ``mcmc``, n = 500: NUTS on the marginal model, and 8-chain ChEES on the
+   whitened model (dim 501), the latter twice with ``--seed 1``, whose chain
+   tables must be identical (kernels K1, K2, K2b);
+2. ``sample`` -> ``select --formulae`` -> ``predict --mcmc`` at n = 4096 rows,
+   whose factorizations take the blocked route through kernel K3 (and K2).
+   K2 is then held against its plain version at this path's shapes, and
+   ``select`` and ``predict`` (on the chain's first draws) against the same
+   commands on the CPU in float64.
 
 Every phase raises on failure; the script exits non-zero on any failure and
 when no CUDA device is available.  Its last line is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it holds the kernels'
-checks and times as JSON.  Data is made with numpy from fixed seeds; the
-chain tables go to ``chip_smoke_out/``.
+checks, times and bounds as JSON.  Data is made with numpy from fixed seeds;
+the tables go to ``chip_smoke_out/``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import logging
 import subprocess
@@ -35,6 +44,15 @@ OUT_DIR = ROOT / "chip_smoke_out"
 N_OBS = 500
 CHAINS = 8
 TIMING_REPS = 21
+N_BIG = 4096      # rows of the sample/select/predict path (the dense model's largest)
+N_AT = 1024       # predict's --at points
+PREDICT_CHECK_DRAWS = 4  # chain draws of the predict run held against the CPU
+K3_TILE = 128     # K3's tile (ops/cholesky.py CHOL_TILE)
+DETERMINISM_LAUNCHES = 20
+
+#: published peaks of one H100 SXM (float32 outside the tensor cores; HBM3)
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 #: error of a float32 kernel against the float64 plain version may be at most
 #: this multiple of the float32 plain version's own error (or the floor)
@@ -54,13 +72,15 @@ def rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
 
 def check_accuracy(name: str, kernel_out, plain32_out, ref64) -> float:
     """float32: the kernel's error against the float64 plain version is at
-    most F32_ERR_FACTOR times the float32 plain version's (or F32_ERR_FLOOR);
-    float64: at most F64_TOL.  Returns the kernel's relative error."""
+    most F32_ERR_FACTOR times the float32 plain version's (the largest, if
+    ``plain32_out`` is a tuple of several) or F32_ERR_FLOOR; float64: at most
+    F64_TOL.  Returns the kernel's relative error."""
     ek = rel_err(kernel_out, ref64)
     if kernel_out.dtype == torch.float64:
         ok, tol = ek <= F64_TOL, F64_TOL
     else:
-        tol = max(F32_ERR_FACTOR * rel_err(plain32_out, ref64), F32_ERR_FLOOR)
+        plains = plain32_out if isinstance(plain32_out, tuple) else (plain32_out,)
+        tol = max(F32_ERR_FACTOR * max(rel_err(p, ref64) for p in plains), F32_ERR_FLOOR)
         ok = ek <= tol
     log(f"  {name}: rel err {ek:.3e} (tolerance {tol:.3e})")
     if not ok:
@@ -71,6 +91,19 @@ def check_accuracy(name: str, kernel_out, plain32_out, ref64) -> float:
 def sqexp_gram(x: np.ndarray, ls: np.ndarray, jitter: float) -> np.ndarray:
     d2 = (x[:, None] - x[None, :]) ** 2
     return np.exp(-d2[None] / (2.0 * ls[:, None, None] ** 2)) + jitter * np.eye(len(x))
+
+
+def bound_ms(flops: float, nbytes: float):
+    """(least time in ms, what bounds it): the larger of the operations over
+    the float32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def spd(n: int, seed: int, dev, jitter: float = 1.1) -> torch.Tensor:
+    """A SqExp gram (l = 1.5) of n uniform points plus jitter I, float64."""
+    x = np.random.default_rng(seed).uniform(-5, 5, n)
+    return torch.as_tensor(sqexp_gram(x, np.array([1.5]), jitter)[0], device=dev)
 
 
 def time_ms(fn) -> float:
@@ -204,7 +237,70 @@ def phase_k2(dev):
             if name == "composite sym" and dtype == torch.float32:
                 errs["K2"] = float((Kk - Kp).abs().max())
                 errs["K2b"] = float((dk - dp).abs().max())
+
+    # K2b sums in a fixed order: every launch gives the same bits
+    ck = compile_formula(parse_formula("y ~| SqExp(:x)").formula)
+    X = torch.as_tensor(rng.uniform(-5, 5, (N_OBS, 1)), device=dev, dtype=torch.float32)
+    p = torch.as_tensor(rng.uniform(1, 2, (CHAINS, 1)), device=dev, dtype=torch.float32)
+    G = torch.as_tensor(rng.normal(size=(CHAINS, N_OBS, N_OBS)), device=dev,
+                        dtype=torch.float32)
+    first = gram_bwd_cuda(ck, p, X, None, G)
+    spread = max(float((gram_bwd_cuda(ck, p, X, None, G) - first).abs().max())
+                 for _ in range(DETERMINISM_LAUNCHES - 1))
+    log(f"  K2b, {DETERMINISM_LAUNCHES} launches at ({CHAINS},{N_OBS},{N_OBS}) float32: "
+        f"largest difference from the first {spread:.3e} (must be 0)")
+    if spread != 0.0:
+        raise AssertionError("K2b is not bitwise repeatable")
     return errs
+
+
+def phase_k3(dev):
+    """K3 against its plain version on single tiles, and the blocked
+    factorization through K3 against torch.linalg.cholesky."""
+    from gaplac_tpu_torch.ops.cholesky import blocked_cholesky, chol_tile_cuda, chol_tile_plain
+
+    log("[3b] K3 Cholesky tile against chol_tile_plain (torch.linalg.cholesky_ex)")
+    main_err = None
+    for n in (K3_TILE, K3_TILE - 1, 37):
+        A64 = spd(n, n, dev)
+        ref = chol_tile_plain(A64)
+        for dtype in (torch.float32, torch.float64):
+            Lk = chol_tile_cuda(A64.to(dtype))
+            Lp = chol_tile_plain(A64.to(dtype))
+            torch.cuda.synchronize()
+            tag = f"({n},{n}) {str(dtype)[6:]}"
+            if float(Lk.triu(1).abs().max()) != 0.0:
+                raise AssertionError(f"K3 {tag}: nonzero upper triangle")
+            check_accuracy(f"K3 tile {tag}", Lk, Lp, ref)
+            if n == K3_TILE and dtype == torch.float32:
+                main_err = float((Lk - Lp).abs().max())
+        bad = A64.clone()
+        bad[n // 2, n // 2] = -1.0
+        for dtype in (torch.float32, torch.float64):
+            if not torch.isnan(chol_tile_cuda(bad.to(dtype))).all():
+                raise AssertionError(f"K3 ({n},{n}) {dtype}: a non-PD tile must give NaN")
+    log("  non-PD tile -> NaN factor: ok")
+
+    log("[3c] blocked_cholesky through K3 against torch.linalg.cholesky (cuSOLVER)")
+    for n in (N_BIG, 2 * N_BIG):
+        A64 = spd(n, n, dev)
+        ref = torch.linalg.cholesky(A64)
+        for dtype in (torch.float32, torch.float64):
+            A = A64.to(dtype)
+            Lk = blocked_cholesky(A, base=K3_TILE)
+            Lp = torch.linalg.cholesky(A)
+            torch.cuda.synchronize()
+            tag = f"n={n} {str(dtype)[6:]}"
+            recon = float(torch.linalg.matrix_norm(Lk.double() @ Lk.double().mT - A64)
+                          / torch.linalg.matrix_norm(A64))
+            recon_tol = 1e-4 if dtype == torch.float32 else 1e-12
+            log(f"  {tag}: |LL^T - A|/|A| = {recon:.3e} (tolerance {recon_tol:.0e})")
+            if not recon <= recon_tol:
+                raise AssertionError(f"blocked {tag}: reconstruction error {recon:.3e}")
+            check_accuracy(f"blocked via K3 {tag}", Lk, Lp, ref)
+            del Lk, Lp
+        del A64, ref
+    return main_err
 
 
 def phase_model_parity(dev):
@@ -240,10 +336,12 @@ def phase_model_parity(dev):
 def phase_timings(dev):
     from gaplac_tpu_torch import parse_formula
     from gaplac_tpu_torch.kernels.covariance import compile_formula
-    from gaplac_tpu_torch.ops.cholesky import chol_batched_cuda, chol_batched_plain
+    from gaplac_tpu_torch.ops.cholesky import (blocked_cholesky, chol_batched_cuda,
+                                               chol_batched_plain, chol_tile_cuda,
+                                               chol_tile_plain)
     from gaplac_tpu_torch.ops.gram import gram_bwd_cuda, gram_bwd_plain, gram_cuda, gram_plain
 
-    log(f"[5] times at the main path's shapes, float32, median of {TIMING_REPS}")
+    log(f"[5] times at the main paths' shapes, float32, median of {TIMING_REPS}")
     rng = np.random.default_rng(9)
     x = rng.uniform(-5, 5, N_OBS)
     A = torch.as_tensor(sqexp_gram(x, rng.uniform(1, 2, CHAINS), 0.1), device=dev,
@@ -252,19 +350,107 @@ def phase_timings(dev):
     X = torch.as_tensor(x[:, None], device=dev, dtype=torch.float32)
     p = torch.as_tensor(rng.uniform(1, 2, (CHAINS, 1)), device=dev, dtype=torch.float32)
     G = torch.randn((CHAINS, N_OBS, N_OBS), device=dev, dtype=torch.float32)
+    T = spd(K3_TILE, 1, dev).to(torch.float32)
+    B = spd(N_BIG, 2, dev).to(torch.float32)
+    Xb = torch.as_tensor(rng.uniform(-5, 5, (N_BIG, 1)), device=dev, dtype=torch.float32)
+    pb = p[:1].contiguous()
+    n = N_OBS
+
+    def chol_bytes(batch, m):
+        """a factorization reads the lower triangle and writes the factor"""
+        return batch * (m * (m + 1) // 2 + m * m) * 4
+
+    def blocked_plain():
+        with plain_kernels():
+            return blocked_cholesky(B, base=K3_TILE)
+
+    # (kernel, plain version, the one PyTorch call computing the same function or
+    #  None, flops, bytes): bytes count each input read once, each output written once
     rows = {
-        "K1": (lambda: chol_batched_cuda(A), lambda: chol_batched_plain(A)),
-        "K2": (lambda: gram_cuda(ck, p, X, None, 0.1), lambda: gram_plain(ck, p, X, None, 0.1)),
+        "K1": (lambda: chol_batched_cuda(A), lambda: chol_batched_plain(A),
+               lambda: torch.linalg.cholesky_ex(A), CHAINS * n ** 3 / 3, chol_bytes(CHAINS, n)),
+        "K2": (lambda: gram_cuda(ck, p, X, None, 0.1), lambda: gram_plain(ck, p, X, None, 0.1),
+               None, 6 * CHAINS * n * n, CHAINS * n * n * 4 + 4 * (n + CHAINS)),
+        # K2 at path 2's largest gram, (1, 4096, 4096)
+        "K2 n=4096": (lambda: gram_cuda(ck, pb, Xb, None, 0.1),
+                      lambda: gram_plain(ck, pb, Xb, None, 0.1),
+                      None, 6 * N_BIG * N_BIG, N_BIG * N_BIG * 4 + 4 * (N_BIG + 1)),
         "K2b": (lambda: gram_bwd_cuda(ck, p, X, None, G),
-                lambda: gram_bwd_plain(ck, p, X, None, G)),
+                lambda: gram_bwd_plain(ck, p, X, None, G),
+                None, 10 * CHAINS * n * n, CHAINS * n * n * 4 + 4 * (n + 2 * CHAINS)),
+        "K3": (lambda: chol_tile_cuda(T), lambda: chol_tile_plain(T),
+               lambda: torch.linalg.cholesky(T), K3_TILE ** 3 / 3, chol_bytes(1, K3_TILE)),
+        # the blocked factorization at n = 4096 (K3 its base case), against cuSOLVER
+        "blocked": (lambda: blocked_cholesky(B, base=K3_TILE), blocked_plain,
+                    lambda: torch.linalg.cholesky(B), N_BIG ** 3 / 3, chol_bytes(1, N_BIG)),
     }
     times = {}
-    for k, (kern, plain) in rows.items():
-        # plain, kernel, kernel, plain: compare within one call, in turns
+    for k, (kern, plain, lib, flops, nbytes) in rows.items():
+        # plain, kernel, kernel, plain (and library, library): in turns, in one call
         tp1, tk1, tk2, tp2 = time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)
-        times[k] = (float(np.median([tk1, tk2])), float(np.median([tp1, tp2])))
-        log(f"  {k}: kernel {tk1:.4f} / {tk2:.4f} ms, plain {tp1:.4f} / {tp2:.4f} ms")
+        tl = float(np.median([time_ms(lib), time_ms(lib)])) if lib is not None else None
+        b, by = bound_ms(flops, nbytes)
+        times[k] = {"ms": float(np.median([tk1, tk2])), "plain_ms": float(np.median([tp1, tp2])),
+                    "library_ms": tl, "bound_ms": b, "bound_by": by}
+        log(f"  {k}: kernel {tk1:.4f} / {tk2:.4f} ms, plain {tp1:.4f} / {tp2:.4f} ms, "
+            f"library {'none' if tl is None else f'{tl:.4f} ms'}, bound {b:.4g} ms ({by})")
+    times["blocked"]["profile"] = profile_blocked(B)
     return times
+
+
+def profile_blocked(B, calls: int = 5) -> dict:
+    """Where the time of blocked_cholesky at n = 4096 goes: host wall per call
+    (synchronized, without the profiler) against the device time of its
+    kernels (torch.profiler, over as many calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gaplac_tpu_torch.ops.cholesky import blocked_cholesky
+
+    blocked_cholesky(B, base=K3_TILE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        blocked_cholesky(B, base=K3_TILE)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / calls * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            blocked_cholesky(B, base=K3_TILE)
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = (e.self_device_time_total / 1e3 / calls, e.count // calls)
+    device = sum(ms for ms, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+    log(f"  blocked n={N_BIG} profiled: wall {wall:.3f} ms/call, device kernels "
+        f"{device:.3f} ms/call ({sum(c for _, c in kernels.values())} launches), busy "
+        f"{device / wall:.2f}")
+    for name, (ms, count) in top:
+        log(f"    {ms:.3f} ms in {count} x {name[:90]}")
+    return {"wall_ms": wall, "device_ms": device,
+            "launches": sum(c for _, c in kernels.values()),
+            "top": [[name[:90], ms, count] for name, (ms, count) in top]}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel's wrapper replaced by its plain version, which runs on the
+    card through PyTorch's own operations (and counts no launch)."""
+    from gaplac_tpu_torch.ops import cholesky as C
+    from gaplac_tpu_torch.ops import gram as G
+
+    swaps = ((C, "chol_batched_cuda", C.chol_batched_plain),
+             (C, "chol_tile_cuda", C.chol_tile_plain),
+             (G, "gram_cuda", G.gram_plain), (G, "gram_bwd_cuda", G.gram_bwd_plain))
+    saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
+    for m, name, plain in swaps:
+        setattr(m, name, plain)
+    try:
+        yield
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
 
 
 class _Capture(logging.Handler):
@@ -276,13 +462,40 @@ class _Capture(logging.Handler):
         self.lines.append(record.getMessage())
 
 
-def phase_main_path(dev):
+def run_cli(argv, capture=None) -> str:
+    """One command through the port's entry point; its standard output."""
+    from gaplac_tpu_torch.cli.main import main
+
+    if capture is not None:
+        capture.lines.clear()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"{' '.join(argv[:4])}...: main returned {rc}")
+    return buf.getvalue()
+
+
+def read_table(path, columns, rows):
     import pandas as pd
 
-    from gaplac_tpu_torch.cli.main import main
+    df = pd.read_csv(path, sep="\t")
+    if list(df.columns) != columns:
+        raise AssertionError(f"{path.name}: columns {list(df.columns)[:6]}...")
+    if len(df) != rows:
+        raise AssertionError(f"{path.name}: {len(df)} rows, expected {rows}")
+    if not np.isfinite(df.to_numpy(dtype=float)).all():
+        raise AssertionError(f"{path.name}: non-finite values")
+    return df
+
+
+def phase_mcmc_path(dev):
+    """Path 1: mcmc at n = 500, NUTS marginal and ChEES whitened (twice)."""
+    import pandas as pd
+
     from gaplac_tpu_torch.ops import _build
 
-    log("[6] main path through gaplac_tpu_torch.cli.main on the card")
+    log("[6] path 1: mcmc through gaplac_tpu_torch.cli.main on the card, n = 500")
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(0)
     x = rng.uniform(-5, 5, N_OBS)
@@ -293,32 +506,26 @@ def phase_main_path(dev):
     capture = _Capture()
     logging.getLogger().addHandler(capture)
     head = ["iteration", "chain", "ℓ"] + [f"fx[{i + 1}]" for i in range(N_OBS)] + ["lp"]
+    chees = ["--no-marginalize", "--sampler", "chees", "--chains", str(CHAINS),
+             "--samples", "30", "--warmup", "30"]
+    chees_cols = head + ["acceptance_rate", "step_size", "traj_length"]
     runs = (  # (name, flags, chain-table columns, rows)
         ("nuts marginal", ["--samples", "100", "--warmup", "100"],
          head + ["acceptance_rate", "tree_depth", "numerical_error"], 100),
-        ("chees whitened", ["--no-marginalize", "--sampler", "chees", "--chains", str(CHAINS),
-                            "--samples", "30", "--warmup", "30"],
-         head + ["acceptance_rate", "step_size", "traj_length"], 30 * CHAINS),
+        ("chees whitened", chees, chees_cols, 30 * CHAINS),
+        ("chees whitened again", chees, chees_cols, 30 * CHAINS),
     )
-    rates = {}
+    rates, outs = {}, {}
     _build.reset_counts()
     for name, extra, columns, rows in runs:
         out = OUT_DIR / f"{name.replace(' ', '_')}.tsv"
         argv = ["-v", "--platform", "cuda", "mcmc", "y ~| SqExp(:x)", "--data", str(data),
                 "--infer", "x", "--output", str(out), "--seed", "1", *extra]
-        capture.lines.clear()
         t0 = time.perf_counter()
-        rc = main(argv)
+        run_cli(argv, capture)
         wall = time.perf_counter() - t0
-        if rc != 0:
-            raise AssertionError(f"{name}: main returned {rc}")
-        df = pd.read_csv(out, sep="\t")
-        if list(df.columns) != columns:
-            raise AssertionError(f"{name}: chain-table columns {list(df.columns)[:6]}...")
-        if len(df) != rows:
-            raise AssertionError(f"{name}: {len(df)} rows")
-        if not np.isfinite(df.to_numpy(dtype=float)).all():
-            raise AssertionError(f"{name}: non-finite values in the chain table")
+        df = read_table(out, columns, rows)
+        outs[name] = out
         rate_line = next(s for s in capture.lines if "transitions/s" in s)
         rate = float(rate_line.split("transitions/s")[0].split("(")[-1])
         rates[name] = {"transitions_per_s": rate, "wall_s": wall,
@@ -327,14 +534,142 @@ def phase_main_path(dev):
             f"command wall {wall:.1f} s; posterior mean ℓ {df['ℓ'].mean():.3f}")
     launches = dict(_build.counts)
     logging.getLogger().removeHandler(capture)
-    log(f"  kernel launches on the main path: {launches}")
+    log(f"  kernel launches on path 1: {launches}")
+    same = outs["chees whitened"].read_bytes() == outs["chees whitened again"].read_bytes()
+    log(f"  two ChEES runs with --seed 1 wrote identical chain tables: {same}")
+    if not same:
+        raise AssertionError("two ChEES runs with --seed 1 wrote different chain tables")
     ell = rates["nuts marginal"]["ell_mean"]
     if not abs(ell - 1.5) <= 0.6:
         raise AssertionError(f"posterior mean ℓ {ell:.3f} outside 1.5 ± 0.6")
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the main path")
-    return launches, rates
+    for k in ("K1", "K2", "K2b"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on path 1")
+    return launches, rates, outs["nuts marginal"]
+
+
+def select_lps(report: str):
+    lp1 = float(report.split("model 1:")[1].splitlines()[0])
+    lp2 = float(report.split("model 2:")[1].splitlines()[0])
+    return lp1, lp2
+
+
+def phase_big_path(dev, chain):
+    """Path 2: sample -> select --formulae -> predict --mcmc at n = 4096."""
+    from gaplac_tpu_torch.ops import _build
+
+    log(f"[7] path 2: sample -> select --formulae -> predict --mcmc, n = {N_BIG}, on the card")
+    data, pred = OUT_DIR / "data_4096.tsv", OUT_DIR / "predict_4096.tsv"
+    formulae = ["y ~| SqExp(:x)", "y ~| OU(:x)"]
+    select = ["select", "--formulae", *formulae, "--data", str(data)]
+
+    def predict(chain_path, out):
+        return ["predict", "y ~| SqExp(:x)", "--data", str(data), "--at",
+                f"x = rand(Uniform(-5,5), {N_AT})", "--seed", "2", "--mcmc", str(chain_path),
+                "--output", str(out)]
+
+    walls = {}
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    run_cli(["--platform", "cuda", "sample", "y :~| SqExp(:x; l=1.5)", "--at",
+             f"x = rand(Uniform(-5,5), {N_BIG})", "--seed", "1", "--output", str(data)])
+    walls["sample"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lps = select_lps(run_cli(["--platform", "cuda", *select]))
+    walls["select"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_cli(["--platform", "cuda", *predict(chain, pred)])
+    walls["predict"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(_build.counts)
+    log(f"  kernel launches on path 2: {launches}; command walls (s): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()))
+    sample_df = read_table(data, ["x", "y"], N_BIG)
+    df = read_table(pred, ["x", "ymu", "yQ050", "yQ950"], N_AT)
+    if not ((df["yQ050"] <= df["ymu"]) & (df["ymu"] <= df["yQ950"])).all():
+        raise AssertionError("predict: ymu outside [yQ050, yQ950]")
+    if launches["K3"] <= 0:
+        raise AssertionError("kernel K3 was not launched on path 2")
+
+    k2_err = check_k2_path2(dev, sample_df, df)
+
+    # select and predict on the card (float32, kernels) against the same
+    # command on the CPU in float64.  The tolerance is the check_accuracy rule
+    # over two float32 runs of the same algorithm through the plain versions:
+    # the command on the CPU, and on the card with every kernel replaced by
+    # its plain version
+    ref = select_lps(run_cli(["--platform", "cpu", *select]))
+    cpu32 = select_lps(run_cli(["--platform", "cpu", "--precision", "f32", *select]))
+    with plain_kernels():
+        card32 = select_lps(run_cli(["--platform", "cuda", *select]))
+    select_check = {}
+    for i, name in enumerate(formulae):
+        ek = abs(lps[i] - ref[i]) / abs(ref[i])
+        e32 = max(abs(cpu32[i] - ref[i]), abs(card32[i] - ref[i])) / abs(ref[i])
+        tol = max(F32_ERR_FACTOR * e32, F32_ERR_FLOOR)
+        log(f"  select lp {name}: card f32 {lps[i]:.4f}, cpu f64 {ref[i]:.4f}; plain f32: "
+            f"cpu {cpu32[i]:.4f}, card {card32[i]:.4f}; rel err {ek:.3e} (tolerance {tol:.3e})")
+        if not ek <= tol:
+            raise AssertionError(f"select lp of {name} on the card is off by {ek:.3e}")
+        select_check[name] = {"card_f32": lps[i], "cpu_f64": ref[i], "plain_f32_cpu": cpu32[i],
+                              "plain_f32_card": card32[i], "rel_err": ek, "tol": tol}
+    predict_check = check_predict_path2(chain, predict)
+    return launches, walls, {"select": select_check, "predict": predict_check,
+                             "K2": k2_err}
+
+
+def check_k2_path2(dev, sample_df, pred_df):
+    """K2 against its plain version at path 2's grams: the symmetric
+    (1, 4096, 4096) one with the jitter, and predict's cross gram of the
+    at-points against the data, (1, 1024, 4096)."""
+    from gaplac_tpu_torch import parse_formula
+    from gaplac_tpu_torch.kernels.covariance import compile_formula
+    from gaplac_tpu_torch.ops.gram import gram_cuda, gram_plain
+
+    ck = compile_formula(parse_formula("y ~| SqExp(:x)").formula)
+    X = torch.tensor(sample_df[["x"]].to_numpy(), device=dev)
+    Xt = torch.tensor(pred_df[["x"]].to_numpy(), device=dev)
+    p64 = ck.default_params(torch.float64, dev)[None]
+    f32 = lambda t: None if t is None else t.to(torch.float32).contiguous()
+    errs = {}
+    for tag, X1, X2, diag in (("sym", X, None, 0.1), ("cross", Xt, X, 0.0)):
+        shape = f"(1,{X1.shape[0]},{X.shape[0]})"
+        ref = gram_plain(ck, p64, X1, X2, diag)
+        Kk = gram_cuda(ck, f32(p64), f32(X1), f32(X2), diag)
+        Kp = gram_plain(ck, f32(p64), f32(X1), f32(X2), diag)
+        check_accuracy(f"K2 path 2 {tag} {shape} float32", Kk, Kp, ref)
+        errs[f"{tag} {shape}"] = float((Kk - Kp).abs().max())
+        del ref, Kk, Kp
+    return errs
+
+
+def check_predict_path2(chain, predict):
+    """predict over the chain's first draws: the card (float32, kernels)
+    against the CPU (float64), column by column, with the check_accuracy rule
+    over the CPU in float32 and the card through the plain versions."""
+    import pandas as pd
+
+    head = OUT_DIR / "chain_head.tsv"
+    pd.read_csv(chain, sep="\t").head(PREDICT_CHECK_DRAWS).to_csv(head, sep="\t", index=False)
+    runs = {}
+    for tag, flags in (("card", ["--platform", "cuda"]), ("cpu64", ["--platform", "cpu"]),
+                       ("cpu32", ["--platform", "cpu", "--precision", "f32"]),
+                       ("card_plain", ["--platform", "cuda"])):
+        out = OUT_DIR / f"predict_head_{tag}.tsv"
+        with plain_kernels() if tag == "card_plain" else contextlib.nullcontext():
+            run_cli([*flags, *predict(head, out)])
+        runs[tag] = read_table(out, ["x", "ymu", "yQ050", "yQ950"], N_AT)
+    if not all(np.array_equal(r["x"], runs["cpu64"]["x"]) for r in runs.values()):
+        raise AssertionError("predict: the --at points differ between the runs")
+    col = lambda tag, c, dt: torch.tensor(runs[tag][c].to_numpy(), dtype=dt)
+    errs = {}
+    for c in ("ymu", "yQ050", "yQ950"):
+        errs[c] = check_accuracy(
+            f"predict {c}, {PREDICT_CHECK_DRAWS} draws, card f32 against cpu f64",
+            col("card", c, torch.float32),
+            (col("cpu32", c, torch.float32), col("card_plain", c, torch.float32)),
+            col("cpu64", c, torch.float64))
+    return errs
 
 
 def main() -> int:
@@ -347,23 +682,34 @@ def main() -> int:
     card = phase_card_and_build()
     k1_err = phase_k1(dev)
     k2_errs = phase_k2(dev)
+    k3_err = phase_k3(dev)
     phase_model_parity(dev)
     times = phase_timings(dev)
-    launches, rates = phase_main_path(dev)
+    mcmc_launches, rates, nuts_chain = phase_mcmc_path(dev)
+    big_launches, walls, path2_checks = phase_big_path(dev, nuts_chain)
     kernels = []
-    for name, src, replaces, err in (
-        ("K1 chol_batched", "gaplac_tpu_torch/csrc/chol_batched.cu",
+    for key, name, src, replaces, err in (
+        ("K1", "K1 chol_batched", "gaplac_tpu_torch/csrc/chol_batched.cu",
          "gaplac_tpu/ops/cholesky.py:296", k1_err),
-        ("K2 gram", "gaplac_tpu_torch/csrc/gram.cu", "gaplac_tpu/ops/gram.py:154",
+        ("K2", "K2 gram", "gaplac_tpu_torch/csrc/gram.cu", "gaplac_tpu/ops/gram.py:154",
          k2_errs["K2"]),
-        ("K2b gram backward", "gaplac_tpu_torch/csrc/gram.cu", "gaplac_tpu/ops/gram.py:154",
-         k2_errs["K2b"]),
+        ("K2b", "K2b gram backward", "gaplac_tpu_torch/csrc/gram.cu",
+         "gaplac_tpu/ops/gram.py:154", k2_errs["K2b"]),
+        ("K3", "K3 chol_tile", "gaplac_tpu_torch/csrc/chol_tile.cu",
+         "gaplac_tpu/ops/cholesky.py:81", k3_err),
     ):
-        key = name.split()[0]
-        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches[key], "max_abs_err": err,
-                        "ms": times[key][0], "plain_ms": times[key][1]})
-    log(f"card: {card}; main path: " + json.dumps(rates))
+        by_path = {"mcmc": mcmc_launches[key], "sample_select_predict": big_launches[key]}
+        row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+               "launches": sum(by_path.values()), "launches_by_path": by_path,
+               "max_abs_err": err, **times[key]}
+        if key == "K2":
+            row["path2"] = {"max_abs_err": path2_checks["K2"], **times["K2 n=4096"]}
+        if key == "K3":
+            row["blocked_cholesky_n4096"] = times["blocked"]
+        kernels.append(row)
+    log(f"card: {card}; path 1: " + json.dumps(rates) + "; path 2 walls (s): "
+        + json.dumps(walls) + "; select, predict: "
+        + json.dumps({k: path2_checks[k] for k in ("select", "predict")}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,17 +2,17 @@
 
 The package mirrors ``gaplac_tpu``'s module paths so each counterpart is
 easy to find, and is held against it by the ``tests/test_torch_*.py``
-parity tests.  It imports ``torch`` and never ``jax``: the formula DSL
-(``gaplac_tpu.dsl``) and the table I/O (``gaplac_tpu.data``) are JAX-free
-and are reused by import.
+parity tests.  It imports ``torch``, never ``jax`` and nothing of
+``gaplac_tpu``: the formula DSL (``dsl/``) and the table I/O (``data/``)
+are its own copies.
 
 On a CUDA device the dense hot path (gram, its backward, the batched
-Cholesky) runs through the hand-written kernels in ``csrc/``; on the CPU
+Cholesky, the base tile of the blocked Cholesky) runs through the hand-written kernels in ``csrc/``; on the CPU
 the same wrappers run their plain PyTorch versions.
 """
 
 __version__ = "0.1.0"
 
-from gaplac_tpu.dsl.parser import Spec, parse_formula  # noqa: E402  (JAX-free)
+from gaplac_tpu_torch.dsl.parser import Spec, parse_formula  # noqa: E402
 
 __all__ = ["parse_formula", "Spec", "__version__"]

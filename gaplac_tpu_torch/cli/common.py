@@ -1,15 +1,16 @@
 """Shared CLI helpers: formula-driven data extraction from tables (port of
-``gaplac_tpu/cli/common.py``, which imports JAX through its kernel module)."""
+``gaplac_tpu/cli/common.py``)."""
 
 from __future__ import annotations
 
 import logging
+from typing import Sequence, Tuple
 
 import numpy as np
 import pandas as pd
 
-from gaplac_tpu.dsl.parser import Spec
-from gaplac_tpu_torch.kernels.covariance import CompiledKernel
+from gaplac_tpu_torch.dsl.parser import Spec
+from gaplac_tpu_torch.kernels.covariance import LENGTHSCALE_KINDS, CompiledKernel
 
 log = logging.getLogger("gaplac")
 
@@ -41,6 +42,39 @@ def design_matrix(df: pd.DataFrame, ck: CompiledKernel) -> np.ndarray:
     return np.stack(cols, axis=1)
 
 
+def design_matrices(
+    df_train: pd.DataFrame, df_test: pd.DataFrame, ck: CompiledKernel
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Train and test input matrices with CONSISTENT categorical codes:
+    non-numeric columns are factorized over the union of both tables so Cat
+    kernel equality compares the same levels across tables."""
+    n_train = len(df_train)
+    cols_train, cols_test = [], []
+    for v in ck.varnames:
+        for df in (df_train, df_test):
+            if v not in df.columns:
+                raise ValueError(
+                    f"Column {v!r} not found in data (available: {list(df.columns)})"
+                )
+        a, b = df_train[v], df_test[v]
+        an = pd.to_numeric(a, errors="coerce")
+        bn = pd.to_numeric(b, errors="coerce")
+        if (an.isna() == a.isna()).all() and (bn.isna() == b.isna()).all():
+            # both sides numeric-valued (possibly one as strings): compare
+            # numerically; stringifying would give '1' vs '1.0'
+            cols_train.append(an.to_numpy(dtype=float))
+            cols_test.append(bn.to_numpy(dtype=float))
+        else:
+            codes, _ = pd.factorize(pd.concat([a.astype(str), b.astype(str)],
+                                              ignore_index=True))
+            codes = codes.astype(float)
+            cols_train.append(codes[:n_train])
+            cols_test.append(codes[n_train:])
+    if not cols_train:
+        return np.zeros((n_train, 0)), np.zeros((len(df_test), 0))
+    return np.stack(cols_train, axis=1), np.stack(cols_test, axis=1)
+
+
 def resolve_hyper_columns(df: pd.DataFrame, n_hyper: int, path: str) -> list:
     """Chain-schema hyperparameter column names (ℓ, ℓ_2, ... with ASCII
     fallbacks)."""
@@ -57,12 +91,47 @@ def resolve_hyper_columns(df: pd.DataFrame, n_hyper: int, path: str) -> list:
     return names
 
 
+def default_slot_groups(ck: CompiledKernel):
+    """Hyperparameter slot groups assumed when a chain-consuming command
+    (predict, sample --mcmc) runs without --infer: ONE shared scalar over
+    every lengthscale-kind leaf, the reference mcmc's common case, so both
+    commands rebuild the same model from the same chain."""
+    shared = tuple(
+        i for i, k in enumerate(ck.kinds)
+        if ck.leaf_vars[i] and k in LENGTHSCALE_KINDS
+    )
+    if not shared:
+        raise ValueError(
+            "--mcmc needs --infer to know which hyperparameters the chain sampled"
+        )
+    return (shared,)
+
+
+def chain_slot_groups(ck: CompiledKernel, args):
+    """The slot groups an --mcmc chain's hyperparameter columns fill: from
+    --infer/--infer-mode/--infer-extra as in the mcmc run, else the default."""
+    from gaplac_tpu_torch.inference.model import slot_groups_for
+
+    extras = list(args.infer_extra or [])
+    if args.infer or extras:
+        return slot_groups_for(ck, args.infer or [], shared=args.infer_mode == "shared",
+                               infer_extras=extras)
+    return default_slot_groups(ck)
+
+
+def refuse_unported(flags: Sequence[Tuple[str, bool]]) -> None:
+    """Raise "not yet ported" naming every flag in ``flags`` that is on."""
+    unported = [flag for flag, on in flags if on]
+    if unported:
+        raise NotImplementedError(f"{', '.join(unported)}: not yet ported to gaplac_tpu_torch")
+
+
 def apply_outlier_policy(df: pd.DataFrame, args, response: str) -> pd.DataFrame:
     """Legacy --rmv-outliers handling."""
     method = getattr(args, "rmv_outliers", "none")
     if method in (None, "", "none"):
         return df
-    from gaplac_tpu.data.outliers import remove_outliers
+    from gaplac_tpu_torch.data.outliers import remove_outliers
 
     extra = [f for f in getattr(args, "outlier_fields", "").split(";") if f]
     ignore = [f for f in getattr(args, "outlier_ignore", "").split(";") if f]

@@ -1,12 +1,14 @@
 """gaplac CLI of the PyTorch/CUDA port: argument schema and dispatch (port of
 ``gaplac_tpu/cli/main.py``).
 
-``mcmc`` is ported on the dense exact model with the NUTS and ChEES
-samplers.  ``sample``, ``select``, ``predict`` and ``fitplot`` are registered
-and raise "not yet ported"; so do the flags whose paths wait (see
-``UNPORTED`` in ``mcmc_cmd.py``).
+``sample``, ``mcmc``, ``select`` and ``predict`` are ported on the dense
+exact model (``--approx none``), with the flags and defaults of
+``gaplac_tpu``; ``fitplot`` is registered and raises "not yet ported", and
+so do the flags whose paths wait (``--approx rff|sde|auto``, ``--plot``,
+the ``--sde-*`` knobs, ...).  The commands run on the card; without one
+they refuse to start unless given ``--platform cpu``.
 
-Run as ``python -m gaplac_tpu_torch.cli.main mcmc ...``.
+Run as ``python -m gaplac_tpu_torch.cli.main <command> ...``.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-UNPORTED_COMMANDS = ("sample", "select", "predict", "fitplot")
+UNPORTED_COMMANDS = ("fitplot",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -34,7 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug", action="store_true", help="Log level to debug")
     p.add_argument("--log", help="Log to a file as well as stderr")
     p.add_argument("--platform", choices=["cpu", "cuda"], default=None,
-                   help="Force the torch device (default: cuda when available)")
+                   help="Torch device (default: cuda; without a CUDA device the "
+                   "commands run only with --platform cpu)")
     p.add_argument("--precision", choices=["f32", "f64"], default=None,
                    help="Compute precision (default: f64 on CPU, f32 on CUDA)")
     p.add_argument("--profile", action="store_true",
@@ -43,9 +46,37 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Write a profiler trace to DIR (not yet ported)")
 
     sub = p.add_subparsers(dest="command", metavar="{sample,mcmc,select,predict,fitplot}")
-    for name in UNPORTED_COMMANDS:
-        sp = sub.add_parser(name, help=f"{name} (not yet ported)")
-        sp.add_argument("rest", nargs=argparse.REMAINDER)
+
+    ps = sub.add_parser("sample", help="Sample from the GP prior at given inputs")
+    ps.add_argument("spec", help="GP formula specification, e.g. \"y :~| SqExp(:x; l=1)\"")
+    ps.add_argument("--at", help="Range to sample at, eg 'x=-5:0.1:5' "
+                    "(grouped 'var/group=...' supported)")
+    ps.add_argument("--atdata", help="Table of points to sample at (alternative to --at)")
+    ps.add_argument("-i", "--data",
+                    help="Training data: when given, sample the POSTERIOR GP conditioned "
+                    "on it")
+    ps.add_argument("-m", "--mcmc",
+                    help="MCMC chain of hyperparameter draws (with --data); one chain row "
+                    "is drawn per sample")
+    ps.add_argument("--infer", nargs="+", default=None,
+                    help="Variables the --mcmc chain inferred (as in the mcmc run)")
+    ps.add_argument("--infer-mode", choices=["shared", "pervar"], default="shared")
+    ps.add_argument("--infer-extra", nargs="+", default=None, metavar="VAR",
+                    help="Variables whose shape parameters (Periodic period, RQ alpha) "
+                    "the --mcmc chain inferred (match the mcmc run)")
+    ps.add_argument("--plot", help="File to plot to (not yet ported)")
+    ps.add_argument("--plotx", help="Plot x axis: 'x' or 'x:group' (not yet ported)")
+    ps.add_argument("-o", "--output", help="Table output - '.csv', '.tsv', or 'stdout'")
+    ps.add_argument("--seed", type=int, default=None, help="PRNG seed")
+    ps.add_argument("--jitter", type=float, default=0.1, help="Latent GP noise floor")
+    ps.add_argument("--approx", choices=["none", "rff", "sde", "auto"], default="none",
+                    help="none: the dense exact model; rff, sde and auto are not yet "
+                    "ported")
+    ps.add_argument("--rff-features", type=int, default=256, metavar="M",
+                    help="Features per stationary kernel leaf with --approx rff")
+    ps.add_argument("--rff-seed", type=int, default=0)
+    _add_sde_flags(ps)
+    _add_outlier_flags(ps)
 
     pm = sub.add_parser("mcmc", help="Run MCMC (NUTS) over kernel hyperparameters")
     pm.add_argument("formula", help="GP formula specification")
@@ -106,20 +137,91 @@ def build_parser() -> argparse.ArgumentParser:
     pm.add_argument("--jitter", type=float, default=0.1, help="Latent GP noise floor")
     pm.add_argument("--checkpoint", help="Path to write sampler-state checkpoints")
     pm.add_argument("--resume", help="Resume/extend from a checkpoint or previous chain output")
-    pm.add_argument("--sde-harmonics", type=int, default=None, metavar="J",
+    _add_sde_flags(pm)
+    _add_outlier_flags(pm)
+
+    pl = sub.add_parser("select", help="Model selection (log2 Bayes factors)")
+    pl.add_argument("--formulae", nargs=2, metavar=("F1", "F2"),
+                    help="Compare 2 formulas on --data at fixed hyperparameters")
+    pl.add_argument("--chains", nargs=2, metavar=("C1", "C2"),
+                    help="Compare 2 mcmc chain outputs (marginal-likelihood estimate)")
+    pl.add_argument("-i", "--data", help="Table input (required with --formulae)")
+    pl.add_argument("--plot", help="File to plot to")
+    pl.add_argument("--estimator", choices=["harmonic", "smc"], default="harmonic",
+                    help="harmonic (--chains; reference parity); smc is not yet ported")
+    pl.add_argument("--infer", nargs="+", default=None,
+                    help="With --estimator smc: variables whose hyperparameter to "
+                    "integrate over (default: all lengthscale-kind leaves)")
+    pl.add_argument("--infer-extra", nargs="+", default=None, metavar="VAR",
+                    help="With --estimator smc: also integrate over these variables' "
+                    "shape parameters")
+    pl.add_argument("--particles", type=int, default=512, help="SMC particle count")
+    pl.add_argument("--approx", choices=["none", "rff", "sde", "auto"], default="none",
+                    help="none: the dense exact model; rff, sde and auto are not yet "
+                    "ported")
+    pl.add_argument("--rff-features", type=int, default=256, metavar="M",
+                    help="Features per stationary kernel leaf with --approx rff")
+    pl.add_argument("--rff-seed", type=int, default=0)
+    pl.add_argument("--seed", type=int, default=0)
+    pl.add_argument("--jitter", type=float, default=0.1)
+    _add_sde_flags(pl)
+
+    pp = sub.add_parser("predict", help="Posterior predictions at --at/--atdata points")
+    pp.add_argument("formula", help="GP formula specification")
+    pp.add_argument("-i", "--data", required=True, help="Training data table")
+    pp.add_argument("-m", "--mcmc", help="MCMC chain table (hyperparameter draws); "
+                    "defaults to the formula's fixed hyperparameters")
+    pp.add_argument("--infer", nargs="+", default=None,
+                    help="Variables whose hyperparameter the chain inferred "
+                    "(same as the mcmc run that produced --mcmc)")
+    pp.add_argument("--infer-mode", choices=["shared", "pervar"], default="shared",
+                    help="Match the mcmc run's --infer-mode")
+    pp.add_argument("--infer-extra", nargs="+", default=None, metavar="VAR",
+                    help="Match the mcmc run's --infer-extra")
+    pp.add_argument("--at", help="Points to predict at, e.g. 'x=-5:0.1:5;g=0'")
+    pp.add_argument("--atdata", help="Table of points to predict at (alternative to --at)")
+    pp.add_argument("-o", "--output", help="Output table (.csv/.tsv)")
+    pp.add_argument("--plot", help="File to plot to (not yet ported)")
+    pp.add_argument("--seed", type=int, default=0)
+    pp.add_argument("--jitter", type=float, default=0.1)
+    pp.add_argument("--approx", choices=["none", "rff", "sde", "auto"], default="none",
+                    help="none: the dense exact model; rff, sde and auto are not yet "
+                    "ported")
+    pp.add_argument("--rff-features", type=int, default=256, metavar="M",
+                    help="Features per stationary kernel leaf with --approx rff")
+    pp.add_argument("--rff-seed", type=int, default=0)
+    pp.add_argument("--sde-window", type=int, default=None, metavar="W",
                     help="--approx sde knob (not yet ported)")
-    pm.add_argument("--sde-rq-nodes", type=int, default=None, metavar="K",
+    pp.add_argument("--sde-overlap", type=int, default=None, metavar="V",
                     help="--approx sde knob (not yet ported)")
-    pm.add_argument("--sde-soa-max-d", type=int, default=None, metavar="D",
-                    help="--approx sde knob (not yet ported)")
-    pm.add_argument("--rmv-outliers", "--rmv_outliers", dest="rmv_outliers",
-                    choices=["none", "fence"], default="none",
-                    help="Outlier removal method for training data (none|fence)")
-    pm.add_argument("--outlier-fields", "--outlier_fields", dest="outlier_fields",
-                    default="", help=";-separated additional fields to fence")
-    pm.add_argument("--outlier-ignore", "--outlier_ignore", dest="outlier_ignore",
-                    default="", help=";-separated fields to exclude from fencing")
+    _add_sde_flags(pp)
+    _add_outlier_flags(pp)
+
+    for name in UNPORTED_COMMANDS:
+        sp = sub.add_parser(name, help=f"{name} (not yet ported)")
+        sp.add_argument("rest", nargs=argparse.REMAINDER)
     return p
+
+
+def _add_sde_flags(sub) -> None:
+    """--approx sde knobs (the sde path is not yet ported)."""
+    sub.add_argument("--sde-harmonics", type=int, default=None, metavar="J",
+                     help="--approx sde knob (not yet ported)")
+    sub.add_argument("--sde-rq-nodes", type=int, default=None, metavar="K",
+                     help="--approx sde knob (not yet ported)")
+    sub.add_argument("--sde-soa-max-d", type=int, default=None, metavar="D",
+                     help="--approx sde knob (not yet ported)")
+
+
+def _add_outlier_flags(sub) -> None:
+    """Legacy outlier-removal flags."""
+    sub.add_argument("--rmv-outliers", "--rmv_outliers", dest="rmv_outliers",
+                     choices=["none", "fence"], default="none",
+                     help="Outlier removal method for training data (none|fence)")
+    sub.add_argument("--outlier-fields", "--outlier_fields", dest="outlier_fields",
+                     default="", help=";-separated additional fields to fence")
+    sub.add_argument("--outlier-ignore", "--outlier_ignore", dest="outlier_ignore",
+                     default="", help=";-separated fields to exclude from fencing")
 
 
 def main(argv=None) -> int:
@@ -139,12 +241,28 @@ def main(argv=None) -> int:
             raise NotImplementedError(
                 f"'{args.command}' is not yet ported to gaplac_tpu_torch "
                 "(use ./gaplac, the JAX package)")
-        if args.profile or args.profile_dir:
-            raise NotImplementedError("--profile/--profile-dir are not yet ported")
+        from gaplac_tpu_torch.cli.common import refuse_unported
+
+        refuse_unported([
+            ("--profile/--profile-dir", args.profile or bool(args.profile_dir)),
+            *((f"--{k.replace('_', '-')}", getattr(args, k, None) is not None)
+              for k in ("sde_harmonics", "sde_rq_nodes", "sde_soa_max_d", "sde_window",
+                        "sde_overlap")),
+        ])
         from gaplac_tpu_torch.runtime import configure
 
-        rt = configure(args.platform, args.precision)
-        from gaplac_tpu_torch.cli.mcmc_cmd import run
+        try:
+            rt = configure(args.platform, args.precision)
+        except RuntimeError as e:  # no card and no --platform cpu
+            raise ValueError(str(e)) from e
+        if args.command == "sample":
+            from gaplac_tpu_torch.cli.sample_cmd import run
+        elif args.command == "select":
+            from gaplac_tpu_torch.cli.select_cmd import run
+        elif args.command == "predict":
+            from gaplac_tpu_torch.cli.predict_cmd import run
+        else:
+            from gaplac_tpu_torch.cli.mcmc_cmd import run
 
         run(args, rt)
     except (ValueError, FileNotFoundError, NotImplementedError) as e:
@@ -152,7 +270,6 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     return 0
-
 
 if __name__ == "__main__":
     raise SystemExit(main())

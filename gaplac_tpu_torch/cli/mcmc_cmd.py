@@ -20,12 +20,13 @@ import numpy as np
 import pandas as pd
 import torch
 
-from gaplac_tpu.data import df_output, load_tables, read_table
-from gaplac_tpu.dsl import parse_formula
+from gaplac_tpu_torch.data import df_output, load_tables, read_table
+from gaplac_tpu_torch.dsl import parse_formula
 from gaplac_tpu_torch.cli.common import (
     apply_outlier_policy,
     column_values,
     design_matrix,
+    refuse_unported,
     resolve_hyper_columns,
     response_vector,
 )
@@ -45,20 +46,12 @@ REPORT_BATCH = 64
 
 
 def _check_ported(args) -> None:
-    unported = []
-    if args.sampler in ("hmc", "advi"):
-        unported.append(f"--sampler {args.sampler}")
-    if args.approx != "none":
-        unported.append(f"--approx {args.approx}")
-    for flag, on in (("--segments", args.segments is not None), ("--plot", args.plot),
-                     ("--check-numerics", args.check_numerics),
-                     ("--sde-harmonics", args.sde_harmonics is not None),
-                     ("--sde-rq-nodes", args.sde_rq_nodes is not None),
-                     ("--sde-soa-max-d", args.sde_soa_max_d is not None)):
-        if on:
-            unported.append(flag)
-    if unported:
-        raise NotImplementedError(f"{', '.join(unported)}: not yet ported to gaplac_tpu_torch")
+    refuse_unported([
+        (f"--sampler {args.sampler}", args.sampler in ("hmc", "advi")),
+        (f"--approx {args.approx}", args.approx != "none"),
+        ("--segments", args.segments is not None), ("--plot", bool(args.plot)),
+        ("--check-numerics", args.check_numerics),
+    ])
 
 
 def _progress(enabled: bool):

@@ -1,0 +1,131 @@
+"""`predict` command: posterior predictions at --at/--atdata points (port of
+``gaplac_tpu/cli/predict_cmd.py`` for ``--approx none``).
+
+Output: the at-variables plus ``ymu`` (posterior mean of the latent GP) and
+``yQ050``/``yQ950`` (its 5% and 95% quantiles; with --mcmc, of the
+equal-weight Gaussian mixture over the chain's hyperparameter draws, found by
+bisection on the mixture CDF).  The draws go through one at a time, so only
+one draw's O(n^2) buffers are alive, as ``lax.map`` keeps it in
+``gaplac_tpu``.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+from scipy.special import ndtr
+
+from gaplac_tpu_torch.cli.common import (
+    apply_outlier_policy,
+    chain_slot_groups,
+    design_matrices,
+    refuse_unported,
+    resolve_hyper_columns,
+    response_vector,
+)
+from gaplac_tpu_torch.data import complete_cases, df_output, load_tables, read_table
+from gaplac_tpu_torch.dsl import build_at_frame, parse_formula
+from gaplac_tpu_torch.inference.likelihoods import gaussian_obs_sigma2
+from gaplac_tpu_torch.kernels.covariance import compile_formula
+from gaplac_tpu_torch.ops import mvn
+from gaplac_tpu_torch.runtime import Runtime
+
+log = logging.getLogger("gaplac")
+
+MAX_CHAIN_DRAWS = 200  # thin chains beyond this for prediction
+
+
+def _hyper_draws(chain_path: str, n_hyper: int) -> np.ndarray:
+    """(draws, n_hyper) hyperparameter draws from an mcmc chain table."""
+    df = read_table(chain_path)
+    names = resolve_hyper_columns(df, n_hyper, chain_path)
+    draws = df[names].to_numpy(dtype=float)
+    if len(draws) > MAX_CHAIN_DRAWS:
+        idx = np.linspace(0, len(draws) - 1, MAX_CHAIN_DRAWS).astype(int)
+        draws = draws[idx]
+    return draws
+
+
+def mixture_quantiles(mus: np.ndarray, sds: np.ndarray, qs=(0.05, 0.95)) -> np.ndarray:
+    """Quantiles of an equal-weight Gaussian mixture, per column.
+
+    mus/sds: (draws, points).  Returns (len(qs), points).
+    """
+    lo = (mus - 6 * sds).min(axis=0)
+    hi = (mus + 6 * sds).max(axis=0)
+    out = np.empty((len(qs), mus.shape[1]))
+    for qi, q in enumerate(qs):
+        a, b = lo.copy(), hi.copy()
+        for _ in range(60):
+            mid = 0.5 * (a + b)
+            cdf = ndtr((mid[None, :] - mus) / sds).mean(axis=0)
+            smaller = cdf < q
+            a = np.where(smaller, mid, a)
+            b = np.where(smaller, b, mid)
+        out[qi] = 0.5 * (a + b)
+    return out
+
+
+def predict_one(ck, params, X, Xt, y, jitter: float, sigma2: float):
+    """Latent posterior mean and variance at Xt for one parameter vector."""
+    K_xx = ck.gram(params, X, diag=jitter)
+    K_tx = ck.gram(params, Xt, X)
+    k_tt = ck.gram_diag(params, Xt) + jitter
+    post = mvn.gp_posterior_cache(K_xx, y, sigma2)
+    mu = mvn.gp_predict_mean(post, K_tx)
+    var = mvn.gp_predict_var(post, K_tx, k_tt)
+    return mu, torch.clamp(var, min=1e-12)
+
+
+def run(args, rt: Runtime) -> None:
+    log.info("running 'predict'")
+    refuse_unported([(f"--approx {args.approx}", args.approx != "none"),
+                     ("--plot", bool(args.plot))])
+    device, dtype = rt
+    spec = parse_formula(args.formula)
+    ck = compile_formula(spec.formula)
+    df = apply_outlier_policy(complete_cases(load_tables(args.data)), args, spec.response)
+    y = torch.tensor(response_vector(df, spec), dtype=dtype, device=device)
+    if args.atdata:
+        tdf = complete_cases(load_tables(args.atdata))
+    elif args.at:
+        tdf = build_at_frame(args.at, formula=spec.formula, seed=args.seed)
+    else:
+        raise ValueError("'predict' requires either '--at' or '--atdata'")
+    # categorical codes must be consistent ACROSS the two tables
+    X_np, Xt_np = design_matrices(df, tdf, ck)
+    X = torch.tensor(X_np, dtype=dtype, device=device)
+    Xt = torch.tensor(Xt_np, dtype=dtype, device=device)
+
+    sigma2 = gaussian_obs_sigma2(spec.likelihood)
+    if sigma2 is None:
+        log.warning("predict currently uses the Gaussian predictive equations; "
+                    "non-Gaussian likelihood %s treated as Gaussian(1)", spec.likelihood.name)
+        sigma2 = 1.0
+
+    if args.mcmc:
+        slot_groups = chain_slot_groups(ck, args)
+        thetas = _hyper_draws(args.mcmc, n_hyper=len(slot_groups))
+    else:
+        thetas, slot_groups = np.zeros((1, 0)), ()
+
+    defaults = ck.default_params(dtype, device)
+    mus, variances = [], []
+    for theta in thetas:
+        p = defaults
+        for g, slots in enumerate(slot_groups):
+            p = ck.set_params(p, slots, float(theta[g]))
+        mu, var = predict_one(ck, p, X, Xt, y, args.jitter, sigma2)
+        mus.append(mu)
+        variances.append(var)
+    mus = torch.stack(mus).cpu().numpy()
+    sds = np.sqrt(torch.stack(variances).cpu().numpy())
+
+    q05, q95 = mixture_quantiles(mus, sds, (0.05, 0.95))
+    out = tdf.copy()
+    out["ymu"] = mus.mean(axis=0)
+    out["yQ050"] = q05
+    out["yQ950"] = q95
+    df_output(out, args.output)

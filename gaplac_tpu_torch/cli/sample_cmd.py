@@ -1,0 +1,102 @@
+"""`sample` command: draw from the GP prior, or from the posterior given
+``--data``, at the ``--at``/``--atdata`` points (port of
+``gaplac_tpu/cli/sample_cmd.py`` for ``--approx none``).
+
+The prior draw factors the gram of the sampled points (kernel K2, then the
+blocked factorization through kernel K3 at n >= 2048, else kernel K1); the
+posterior draw conditions on ``--data``, with the hyperparameters of one
+random ``--mcmc`` chain row.  torch's generator gives other numbers than
+``jax.random`` for the same ``--seed``; the draw is the same function of
+its normal variates.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from gaplac_tpu_torch.cli.common import (
+    apply_outlier_policy,
+    chain_slot_groups,
+    design_matrices,
+    design_matrix,
+    refuse_unported,
+    response_vector,
+)
+from gaplac_tpu_torch.data import complete_cases, df_output, load_tables
+from gaplac_tpu_torch.dsl import build_at_frame, parse_formula
+from gaplac_tpu_torch.inference.likelihoods import gaussian_obs_sigma2
+from gaplac_tpu_torch.kernels.covariance import compile_formula
+from gaplac_tpu_torch.ops import mvn
+from gaplac_tpu_torch.runtime import Runtime
+
+log = logging.getLogger("gaplac")
+
+
+def run(args, rt: Runtime) -> None:
+    log.info("running 'sample'")
+    refuse_unported([(f"--approx {args.approx}", args.approx != "none"),
+                     ("--plot", bool(args.plot)), ("--plotx", bool(args.plotx))])
+    spec = parse_formula(args.spec)
+    ck = compile_formula(spec.formula)
+    if args.atdata:
+        df = complete_cases(load_tables(args.atdata))
+    elif args.at:
+        df = build_at_frame(args.at, formula=spec.formula, seed=args.seed)
+    else:
+        raise ValueError("'sample' requires either '--at' or '--atdata'")
+
+    device, dtype = rt
+    seed = args.seed if args.seed is not None else int(np.random.SeedSequence().entropy % (2**63))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = ck.default_params(dtype, device)
+    if args.data:
+        y = _sample_posterior(args, spec, ck, df, params, gen, rt)
+    else:
+        X = torch.tensor(design_matrix(df, ck), dtype=dtype, device=device)
+        K = ck.gram(params, X, diag=args.jitter)  # K + jitter I
+        y = mvn.sample_mvn_chol(gen, mvn.chol(K))
+    df[spec.response] = y.cpu().numpy()
+    df_output(df, args.output)
+
+
+def posterior_at(ck, params, X, Xt, y, jitter: float, sigma2: float):
+    """Mean and covariance of the latent GP at Xt given (X, y): the prior
+    K + jitter I, observed with variance sigma2."""
+    K_xx = ck.gram(params, X, diag=jitter)
+    K_tx = ck.gram(params, Xt, X)
+    K_tt = ck.gram(params, Xt)
+    post = mvn.gp_posterior_cache(K_xx, y, sigma2)
+    return mvn.gp_predict_mean(post, K_tx), mvn.gp_predict_cov(post, K_tx, K_tt)
+
+
+def _sample_posterior(args, spec, ck, tdf, params, gen, rt: Runtime) -> torch.Tensor:
+    """A posterior draw at the test points, conditioned on --data, with the
+    hyperparameters of a random --mcmc chain row."""
+    from gaplac_tpu_torch.cli.predict_cmd import _hyper_draws
+
+    device, dtype = rt
+    df = apply_outlier_policy(complete_cases(load_tables(args.data)), args, spec.response)
+    y = torch.tensor(response_vector(df, spec), dtype=dtype, device=device)
+    X_np, Xt_np = design_matrices(df, tdf, ck)
+    X = torch.tensor(X_np, dtype=dtype, device=device)
+    Xt = torch.tensor(Xt_np, dtype=dtype, device=device)
+
+    if args.mcmc:
+        slot_groups = chain_slot_groups(ck, args)
+        draws = _hyper_draws(args.mcmc, n_hyper=len(slot_groups))
+        row = int(torch.randint(len(draws), (1,), generator=gen, device=device))
+        theta = draws[row]
+        log.info("Using hyperparameters from chain row %d: %s", row, theta)
+        for g, slots in enumerate(slot_groups):
+            params = ck.set_params(params, slots, float(theta[g]))
+
+    sigma2 = gaussian_obs_sigma2(spec.likelihood)
+    if sigma2 is None:
+        log.warning("non-Gaussian likelihood %s treated as Gaussian(1) for posterior "
+                    "sampling", spec.likelihood.name)
+        sigma2 = 1.0
+    mu, cov = posterior_at(ck, params, X, Xt, y, args.jitter, sigma2)
+    return mvn.sample_mvn(gen, cov, mean=mu, jitter=args.jitter)

@@ -24,9 +24,12 @@
 //   * `diag` (the jitter) is added on i == j of a symmetric gram.
 // K2b reads the cotangent gK once and forms
 //   dtheta[c, s] = sum_ij gK[c,i,j] dK[c,i,j]/dtheta_s
-// with closed-form leaf derivatives, reduced over each warp by shuffles,
-// over the block in shared memory, and across blocks by atomicAdd into
-// (C, P).  The atomics make the order of the sum vary from run to run.
+// with closed-form leaf derivatives.  The sum is taken in a fixed order, so
+// every launch gives the same bits (a seeded run repeats on the card): each
+// warp reduces by shuffles into its own row of shared memory, the block sums
+// its 8 warp rows in warp order into a (C, blocks, P) scratch buffer, and a
+// second kernel sums each (c, s) over the blocks, each thread a fixed stride
+// of blocks in index order, then a tree over the threads.  No atomics.
 #include "common.cuh"
 
 namespace gaplac {
@@ -176,17 +179,21 @@ __global__ void gram_fwd_kernel(const int* desc, int L, int NT, const T* X1, con
   out[(static_cast<size_t>(c) * n1 + i) * n2 + j] = acc;
 }
 
+constexpr int BLOCK_WARPS = TILE * TILE / 32;
+constexpr int REDUCE_THREADS = 256;
+
 template <typename T>
 __global__ void gram_bwd_kernel(const int* desc, int L, int NT, const T* X1, const T* X2,
                                 int n1, int n2, int d, const T* params, int P,
-                                int symmetric, const T* gK, T* dparams) {
+                                int symmetric, const T* gK, T* partial) {
   __shared__ Formula f;
   __shared__ T sp[MAX_PARAMS];
-  __shared__ T sacc[MAX_PARAMS];
+  __shared__ T wacc[BLOCK_WARPS][MAX_PARAMS];  // one row per warp: no races
   const int c = blockIdx.z;
   load_block_state(f, sp, desc, L, NT, params, P, c);
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int k = tid; k < P; k += blockDim.x * blockDim.y) sacc[k] = T(0);
+  for (int k = tid; k < BLOCK_WARPS * MAX_PARAMS; k += blockDim.x * blockDim.y)
+    wacc[k / MAX_PARAMS][k % MAX_PARAMS] = T(0);
   __syncthreads();
 
   const int i = blockIdx.y * TILE + threadIdx.y;
@@ -195,6 +202,7 @@ __global__ void gram_bwd_kernel(const int* desc, int L, int NT, const T* X1, con
   const bool diag_elem = symmetric && i == j;
   const T g = valid ? gK[(static_cast<size_t>(c) * n1 + i) * n2 + j] : T(0);
   const int lane = tid & 31;
+  const int warp = tid >> 5;
 
   for (int t = 0; t < NT; ++t) {
     const int k0 = f.term_ptr[t], k1 = f.term_ptr[t + 1];
@@ -224,14 +232,36 @@ __global__ void gram_bwd_kernel(const int* desc, int L, int NT, const T* X1, con
       const T sum_p = warp_sum(w * dp);
       const T sum_e = warp_sum(w * de);
       if (lane == 0) {
-        atomicAdd(&sacc[li], sum_p);
-        if (f.extra[li] >= 0) atomicAdd(&sacc[f.extra[li]], sum_e);
+        wacc[warp][li] += sum_p;
+        if (f.extra[li] >= 0) wacc[warp][f.extra[li]] += sum_e;
       }
     }
   }
   __syncthreads();
-  for (int k = tid; k < P; k += blockDim.x * blockDim.y)
-    if (sacc[k] != T(0)) atomicAdd(&dparams[static_cast<size_t>(c) * P + k], sacc[k]);
+  const size_t blk = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+  const size_t nblk = static_cast<size_t>(gridDim.x) * gridDim.y;
+  for (int k = tid; k < P; k += blockDim.x * blockDim.y) {
+    T s = T(0);
+    for (int w = 0; w < BLOCK_WARPS; ++w) s += wacc[w][k];
+    partial[(static_cast<size_t>(c) * nblk + blk) * P + k] = s;
+  }
+}
+
+// dparams[c, k] = sum over b of partial[c, b, k], in a fixed order
+template <typename T>
+__global__ void gram_bwd_reduce_kernel(const T* partial, int nblk, int P, T* dparams) {
+  __shared__ T s[REDUCE_THREADS];
+  const int k = blockIdx.x, c = blockIdx.y;
+  T acc = T(0);
+  for (int b = threadIdx.x; b < nblk; b += REDUCE_THREADS)
+    acc += partial[(static_cast<size_t>(c) * nblk + b) * P + k];
+  s[threadIdx.x] = acc;
+  __syncthreads();
+  for (int h = REDUCE_THREADS / 2; h > 0; h >>= 1) {
+    if (threadIdx.x < h) s[threadIdx.x] += s[threadIdx.x + h];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) dparams[static_cast<size_t>(c) * P + k] = s[0];
 }
 
 dim3 grid_for(int n1, int n2, int C) {
@@ -256,15 +286,23 @@ int launch_fwd(const void* desc, int L, int NT, const void* X1, const void* X2, 
 template <typename T>
 int launch_bwd(const void* desc, int L, int NT, const void* X1, const void* X2, int n1, int n2,
                int d, const void* params, int C, int P, int symmetric, const void* gK,
-               void* dparams, int device, void* stream) {
+               void* partial, void* dparams, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (C == 0 || n1 == 0 || n2 == 0) return 0;
-  gram_bwd_kernel<T><<<grid_for(n1, n2, C), dim3(TILE, TILE), 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(desc), L, NT, static_cast<const T*>(X1),
-      static_cast<const T*>(X2), n1, n2, d, static_cast<const T*>(params), P, symmetric,
-      static_cast<const T*>(gK), static_cast<T*>(dparams));
+  if (C == 0 || P == 0) return 0;
+  const dim3 grid = grid_for(n1, n2, C);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n1 > 0 && n2 > 0) {
+    gram_bwd_kernel<T><<<grid, dim3(TILE, TILE), 0, s>>>(
+        static_cast<const int*>(desc), L, NT, static_cast<const T*>(X1),
+        static_cast<const T*>(X2), n1, n2, d, static_cast<const T*>(params), P, symmetric,
+        static_cast<const T*>(gK), static_cast<T*>(partial));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int nblk = n1 > 0 && n2 > 0 ? static_cast<int>(grid.x * grid.y) : 0;
+  gram_bwd_reduce_kernel<T><<<dim3(P, C), REDUCE_THREADS, 0, s>>>(
+      static_cast<const T*>(partial), nblk, P, static_cast<T*>(dparams));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -288,19 +326,20 @@ extern "C" int gaplac_gram_fwd_f64(const void* desc, int L, int NT, const void* 
                                     symmetric, out, device, stream);
 }
 
-// dparams (C, P) += sum_ij gK[c,i,j] dK[c,i,j]/dparams[c,:]; caller zeroes it
+// dparams (C, P) = sum_ij gK[c,i,j] dK[c,i,j]/dparams[c,:]; partial is scratch
+// of (C, blocks, P), blocks = ceil(n1 / 16) * ceil(n2 / 16)
 extern "C" int gaplac_gram_bwd_f32(const void* desc, int L, int NT, const void* X1,
                                    const void* X2, int n1, int n2, int d, const void* params,
-                                   int C, int P, int symmetric, const void* gK, void* dparams,
-                                   int device, void* stream) {
+                                   int C, int P, int symmetric, const void* gK, void* partial,
+                                   void* dparams, int device, void* stream) {
   return gaplac::launch_bwd<float>(desc, L, NT, X1, X2, n1, n2, d, params, C, P, symmetric,
-                                   gK, dparams, device, stream);
+                                   gK, partial, dparams, device, stream);
 }
 
 extern "C" int gaplac_gram_bwd_f64(const void* desc, int L, int NT, const void* X1,
                                    const void* X2, int n1, int n2, int d, const void* params,
-                                   int C, int P, int symmetric, const void* gK, void* dparams,
-                                   int device, void* stream) {
+                                   int C, int P, int symmetric, const void* gK, void* partial,
+                                   void* dparams, int device, void* stream) {
   return gaplac::launch_bwd<double>(desc, L, NT, X1, X2, n1, n2, d, params, C, P, symmetric,
-                                    gK, dparams, device, stream);
+                                    gK, partial, dparams, device, stream);
 }

@@ -8,7 +8,7 @@ from typing import Callable, Optional
 
 import torch
 
-from gaplac_tpu.dsl.parser import LikelihoodSpec
+from gaplac_tpu_torch.dsl.parser import LikelihoodSpec
 
 _LOG_2PI = math.log(2.0 * math.pi)
 

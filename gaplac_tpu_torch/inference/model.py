@@ -22,7 +22,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from gaplac_tpu.dsl.parser import LikelihoodSpec
+from gaplac_tpu_torch.dsl.parser import LikelihoodSpec
 from gaplac_tpu_torch.inference.likelihoods import gaussian_obs_sigma2, make_loglik
 from gaplac_tpu_torch.inference.priors import as_prior
 from gaplac_tpu_torch.kernels.covariance import CompiledKernel

@@ -20,7 +20,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from gaplac_tpu.dsl.ast import (
+from gaplac_tpu_torch.dsl.ast import (
     Cat,
     Constant,
     GPComponent,
@@ -44,6 +44,10 @@ _KIND_OF = {
     Constant: K_CONST, Matern32: K_MATERN32, Matern52: K_MATERN52,
     Periodic: K_PERIODIC, RQ: K_RQ,
 }
+
+#: kinds whose scalar hyperparameter is a lengthscale (the chain-sampled
+#: class that predict/sample take from a chain without --infer)
+LENGTHSCALE_KINDS = (K_SQEXP, K_OU, K_MATERN32, K_MATERN52, K_PERIODIC, K_RQ)
 
 _SQRT3 = 3.0 ** 0.5
 _SQRT5 = 5.0 ** 0.5

@@ -1,8 +1,9 @@
 """Build the CUDA kernels of ``csrc/`` at first CUDA use and bind them.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
+``nvcc`` compiles every ``csrc/*.cu`` into an object, one process per source,
+all started together, and links them into one shared library with a plain
 C interface, cached under ``gaplac_tpu_torch/_build/`` by a hash of the
-sources and flags, and ``ctypes`` loads it.  Each C entry point returns
+sources and flags; ``ctypes`` loads it.  Each C entry point returns
 ``cudaGetLastError()`` after its launch; :func:`check` raises on anything
 but 0.  A failed build raises: nothing falls back.
 
@@ -27,10 +28,11 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
-#: launches per kernel: K1 batched Cholesky, K2 gram, K2b gram backward
-counts = {"K1": 0, "K2": 0, "K2b": 0}
+#: launches per kernel: K1 batched Cholesky, K2 gram, K2b gram backward,
+#: K3 Cholesky of one tile (the blocked factorization's base case)
+counts = {"K1": 0, "K2": 0, "K2b": 0, "K3": 0}
 #: wall-clock seconds of the nvcc build in this process (None: cached or not built)
 build_seconds = None
 _lib = None
@@ -44,8 +46,12 @@ _SIGNATURES = {
                             _I, _P, _I, _P),
     "gaplac_gram_fwd_f64": (_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _I, ctypes.c_double,
                             _I, _P, _I, _P),
-    "gaplac_gram_bwd_f32": (_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _I, _P),
-    "gaplac_gram_bwd_f64": (_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _I, _P),
+    "gaplac_gram_bwd_f32": (_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _I,
+                            _P),
+    "gaplac_gram_bwd_f64": (_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _I,
+                            _P),
+    "gaplac_chol_tile_f32": (_P, _P, _I, _I, _P),
+    "gaplac_chol_tile_f64": (_P, _P, _I, _I, _P),
 }
 
 
@@ -75,13 +81,30 @@ def library() -> ctypes.CDLL:
     out = BUILD_DIR / f"libgaplac_kernels_{digest.hexdigest()[:16]}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+        objs = [BUILD_DIR / f"{f.stem}.{os.getpid()}.o" for f in sources]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(f)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for f, o in zip(sources, objs)]
+        try:
+            for f, proc in zip(sources, procs):
+                _, err = proc.communicate()
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {f.name} with code "
+                                       f"{proc.returncode}:\n{err}")
+        finally:
+            for proc in procs:  # after a failure, stop the builds still running
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{proc.stderr}")
+            raise RuntimeError(f"nvcc link failed with code {proc.returncode}:\n{proc.stderr}")
         os.replace(tmp, out)
+        for o in objs:
+            o.unlink()
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():

@@ -39,6 +39,7 @@ from gaplac_tpu_torch.kernels.covariance import (
 from gaplac_tpu_torch.ops import _build
 
 _MAX_LEAVES, _MAX_TERMS, _MAX_PARAMS, _MAX_TERM_LEAVES = 32, 32, 64, 8
+_TILE = 16  # K2/K2b thread block: 16 x 16 elements
 
 
 # ---------------------------------------------------------------------------
@@ -201,12 +202,16 @@ def gram_bwd_cuda(ck: CompiledKernel, params: torch.Tensor, X1: torch.Tensor,
     lib = _build.library()
     sfx, head, symmetric, X2v = _gram_args(ck, params, X1, X2, "gram backward (K2b)")
     _build.require_cuda("gram backward (K2b)", params, gK)
-    if gK.shape != (params.shape[0], X1.shape[0], X2v.shape[0]):
+    C, n1, n2 = params.shape[0], X1.shape[0], X2v.shape[0]
+    if gK.shape != (C, n1, n2):
         raise ValueError(f"gram backward (K2b): gK of shape {tuple(gK.shape)}")
-    dparams = torch.zeros_like(params)
+    blocks = -(-n1 // _TILE) * -(-n2 // _TILE)
+    partial = torch.empty((C, blocks, params.shape[1]), dtype=params.dtype,
+                          device=params.device)  # per-block sums, reduced in a fixed order
+    dparams = torch.empty_like(params)
     err = getattr(lib, f"gaplac_gram_bwd_{sfx}")(
-        *head, int(symmetric), gK.data_ptr(), dparams.data_ptr(), params.device.index or 0,
-        _build.stream_of(params))
+        *head, int(symmetric), gK.data_ptr(), partial.data_ptr(), dparams.data_ptr(),
+        params.device.index or 0, _build.stream_of(params))
     _build.check(err, "gram backward (K2b)")
     _build.counts["K2b"] += 1
     return dparams

@@ -1,21 +1,30 @@
 """Linear-algebra seam (port of ``gaplac_tpu/ops/linalg.py``).
 
-``cholesky`` sends every factorization, 2-D or batched, through
-``CholeskyBatched``: kernel K1 for a CUDA tensor, its plain version for a CPU
-tensor.  ``solve_triangular`` stays on ``torch.linalg.solve_triangular``, as
-``gaplac_tpu`` left it to XLA.  The TPU registry of blocked overrides and
-min-n thresholds has no counterpart here.
+``cholesky`` sends one 2-D matrix with n >= ``BLOCKED_MIN_N`` to the
+recursive blocked factorization (``CholeskyBlocked``, base case kernel K3),
+as ``gaplac_tpu/ops/__init__.py`` registers it (``register(min_n=2048)``);
+every other factorization, batched or small, goes through
+``CholeskyBatched`` (kernel K1).  The route depends only on the shape, so
+the CPU runs the same algorithm with the kernels' plain versions.
+``solve_triangular`` stays on ``torch.linalg.solve_triangular``; the blocked
+solves are not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gaplac_tpu_torch.ops.cholesky import CholeskyBatched
+from gaplac_tpu_torch.ops.cholesky import CholeskyBatched, CholeskyBlocked
+
+#: smallest n of a 2-D matrix that takes the blocked factorization
+BLOCKED_MIN_N = 2048
 
 
 def cholesky(K: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor of (..., n, n); NaN for a failed member."""
+    """Lower Cholesky factor of (..., n, n); NaN for a failed member (for a
+    failed tile of the blocked route, NaN from that tile on)."""
+    if K.dim() == 2 and K.shape[-1] >= BLOCKED_MIN_N:
+        return CholeskyBlocked.apply(K)
     return CholeskyBatched.apply(K)
 
 

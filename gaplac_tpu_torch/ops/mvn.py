@@ -1,5 +1,6 @@
-"""MVN core: Cholesky-backed logpdf and sampling (port of
-``gaplac_tpu/ops/mvn.py``, batched over leading axes).
+"""MVN core: Cholesky-backed logpdf, sampling and the GP posterior (port of
+``gaplac_tpu/ops/mvn.py``; logpdf and sampling are batched over leading
+axes, the posterior helpers take one (n, n) system as there).
 
 The observation variance ("jitter") 0.1 is the reference's default.
 """
@@ -7,6 +8,7 @@ The observation variance ("jitter") 0.1 is the reference's default.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -48,3 +50,34 @@ def sample_mvn_chol(gen: torch.Generator, L: torch.Tensor, mean=0.0) -> torch.Te
 
 def sample_mvn(gen: torch.Generator, K: torch.Tensor, mean=0.0, jitter: float = 0.0) -> torch.Tensor:
     return sample_mvn_chol(gen, chol(K, jitter), mean)
+
+
+class GPPosterior(NamedTuple):
+    """Cached solves for GP regression on train (X, y) with observation
+    variance ``noise``: predicts the mean and covariance at test points."""
+
+    L: torch.Tensor      # chol(K_xx + noise I)
+    alpha: torch.Tensor  # (K_xx + noise I)^{-1} (y - mean)
+
+
+def gp_posterior_cache(K_xx: torch.Tensor, y: torch.Tensor, noise, mean=0.0) -> GPPosterior:
+    L = chol(K_xx) if noise is None else chol(add_jitter(K_xx, noise))
+    a = linalg.solve_triangular(L, y - mean, lower=True)
+    alpha = linalg.solve_triangular(L.mT, a, lower=False)
+    return GPPosterior(L, alpha)
+
+
+def gp_predict_mean(post: GPPosterior, K_tx: torch.Tensor, prior_mean=0.0) -> torch.Tensor:
+    """Posterior mean at the test points: m_t + K_tx alpha."""
+    return prior_mean + K_tx @ post.alpha
+
+
+def gp_predict_var(post: GPPosterior, K_tx: torch.Tensor, K_tt_diag: torch.Tensor) -> torch.Tensor:
+    """Posterior marginal variance (diagonal only): k_tt - ||L^{-1} K_xt||^2."""
+    V = linalg.solve_triangular(post.L, K_tx.mT, lower=True)
+    return K_tt_diag - torch.sum(V * V, dim=-2)
+
+
+def gp_predict_cov(post: GPPosterior, K_tx: torch.Tensor, K_tt: torch.Tensor) -> torch.Tensor:
+    V = linalg.solve_triangular(post.L, K_tx.mT, lower=True)
+    return K_tt - V.mT @ V

@@ -23,14 +23,17 @@ class Runtime(NamedTuple):
 
 
 def configure(platform: Optional[str] = None, precision: Optional[str] = None) -> Runtime:
-    """platform: cpu|cuda|None (auto); precision: f32|f64|None (auto)."""
+    """platform: cuda|cpu|None (None: the card); precision: f32|f64|None (auto).
+
+    The port runs on the card: without a CUDA device it raises, unless the
+    caller asks for the CPU with ``platform="cpu"`` (``--platform cpu``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if platform == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--platform cuda: no CUDA device is available")
     if platform is None:
-        platform = "cuda" if torch.cuda.is_available() else "cpu"
-        log.info("auto platform: %s", platform)
+        platform = "cuda"
+    if platform == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --platform cpu to run on "
+                           "the CPU")
     device = torch.device(platform)
     if precision is None:
         precision = "f64" if device.type == "cpu" else "f32"

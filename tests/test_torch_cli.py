@@ -1,9 +1,12 @@
 """The port's CLI on the CPU: the chain-table schema against gaplac_tpu's
-writer, checkpoints in gaplac_tpu's format, the entry point end to end, and
-an import of the whole port that pulls in no JAX."""
+writer, checkpoints in gaplac_tpu's format, the entry point end to end, the
+refusal to start without a card unless given --platform cpu, and an import
+of the whole port that pulls in neither JAX nor gaplac_tpu."""
 
 import argparse
+import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -13,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 
 from gaplac_tpu.cli import mcmc_cmd as jax_mcmc
 from gaplac_tpu_torch.cli import mcmc_cmd
@@ -115,16 +119,43 @@ def test_jax_checkpoint_resumes_and_port_checkpoint_loads_in_jax(tmp_path, sampl
 
 
 def test_unported_paths_exit_with_error(tmp_path, capsys):
-    assert main(["predict", "y ~| SqExp(:x)", "--data", "d.tsv"]) == 2
+    assert main(["--platform", "cpu", "fitplot", "y ~| SqExp(:x)", "--data", "d.tsv"]) == 2
     data = tmp_path / "data.tsv"
     _write_data(data)
     for extra in (["--approx", "sde"], ["--sampler", "advi"]):
         assert main(["--platform", "cpu", "mcmc", "y ~| SqExp(:x)", "--data", str(data),
                      "--infer", "x", *extra]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    for argv in (["predict", "y ~| SqExp(:x)", "--data", str(data), "--at", "x=0:1:2",
+                  "--approx", "rff"],
+                 ["select", "--formulae", "y ~| SqExp(:x)", "y ~| OU(:x)", "--data", str(data),
+                  "--estimator", "smc"],
+                 ["sample", "y ~| SqExp(:x)", "--at", "x=0:1:2", "--plot", "p.png"]):
+        assert main(["--platform", "cpu", *argv]) == 2
+    errors = [s for s in capsys.readouterr().err.splitlines() if s.startswith("error:")]
+    assert len(errors) == 6 and all("not yet ported" in s for s in errors), errors
+
+
+def test_no_card_needs_platform_cpu(tmp_path, capsys, monkeypatch):
+    """Without a CUDA device the port refuses to start unless asked for the
+    CPU; it never falls back to it."""
+    from gaplac_tpu_torch.runtime import configure
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for platform in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="--platform cpu"):
+            configure(platform)
+    assert configure("cpu").device.type == "cpu"
+    out = tmp_path / "s.tsv"
+    argv = ["sample", "y :~| SqExp(:x; l=1.5)", "--at", "x=0:1:3", "--seed", "1",
+            "--output", str(out)]
+    assert main(argv) == 2
+    assert "no CUDA device" in capsys.readouterr().err and not out.exists()
+    assert main(["--platform", "cpu", *argv]) == 0 and out.exists()
 
 
 def test_port_imports_no_jax():
+    """No module of the port, and not chip_smoke.py, imports jax or anything
+    of gaplac_tpu."""
     code = (
         "import sys, importlib, pkgutil\n"
         "import gaplac_tpu_torch\n"
@@ -133,6 +164,8 @@ def test_port_imports_no_jax():
         "from gaplac_tpu_torch.cli.main import build_parser\n"
         "build_parser().parse_args(['mcmc', 'y ~| SqExp(:x)', '--data', 'd.tsv'])\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'gaplac_tpu' or m.startswith('gaplac_tpu.'))\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -140,3 +173,11 @@ def test_port_imports_no_jax():
                           env=env, cwd=str(ROOT), timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+    imported = set()
+    for node in ast.walk(ast.parse((ROOT / "chip_smoke.py").read_text())):
+        if isinstance(node, ast.Import):
+            imported.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            imported.add(node.module or "")
+    bad = sorted(m for m in imported if re.match(r"(jax|gaplac_tpu)(\.|$)", m))
+    assert not bad, bad

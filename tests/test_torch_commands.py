@@ -1,0 +1,200 @@
+"""The port's `sample`, `select` and `predict` against gaplac_tpu's, both on
+the CPU in float64, on the same files: table columns and order equal, the
+select log densities and Bayes factors and the predict columns to 1e-9
+relative, and the sample draws as the same function (mean + L z) of the same
+normal variates (the two RNGs differ).  One case runs at n >= 2048, where
+the port's factorization takes the blocked route (kernel K3's plain
+version)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+
+from gaplac_tpu.cli import select_cmd as jselect
+from gaplac_tpu.cli.main import build_parser as jax_parser
+from gaplac_tpu.cli.main import main as jax_main
+from gaplac_tpu.dsl import parse_formula as jax_parse
+from gaplac_tpu.kernels.covariance import compile_formula as jax_compile
+from gaplac_tpu.ops import mvn as jmvn
+from gaplac_tpu_torch.cli import sample_cmd, select_cmd
+from gaplac_tpu_torch.cli.main import build_parser, main
+from gaplac_tpu_torch.dsl import parse_formula
+from gaplac_tpu_torch.kernels.covariance import compile_formula
+from gaplac_tpu_torch.ops import cholesky as TC
+from gaplac_tpu_torch.ops import mvn
+from gaplac_tpu_torch.runtime import Runtime
+
+RTOL = 1e-9
+CPU64 = Runtime(torch.device("cpu"), torch.float64)
+
+
+def _close(got, ref):
+    got, ref = np.asarray(got, float), np.asarray(ref, float)
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=RTOL * np.abs(ref).max())
+
+
+def _write_data(path, n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-5, 5, n)
+    K = np.exp(-(x[:, None] - x[None, :]) ** 2 / (2 * 1.5 ** 2)) + 0.1 * np.eye(n)
+    y = np.linalg.cholesky(K + 1e-9 * np.eye(n)) @ rng.normal(size=n) + rng.normal(size=n)
+    pd.DataFrame({"x": x, "y": y}).to_csv(path, sep="\t", index=False)
+
+
+def _write_chain(path, draws, seed):
+    rng = np.random.default_rng(seed)
+    pd.DataFrame({"iteration": np.arange(1, draws + 1), "chain": np.ones(draws, int),
+                  "ℓ": rng.uniform(1.0, 2.5, draws), "lp": rng.normal(-80, 3, draws)}
+                 ).to_csv(path, sep="\t", index=False)
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    d = tmp_path_factory.mktemp("cmds")
+    _write_data(d / "data.tsv", 40, 0)
+    _write_chain(d / "chain1.tsv", 250, 1)  # more rows than MAX_CHAIN_DRAWS: thinned
+    _write_chain(d / "chain2.tsv", 60, 2)
+    return d
+
+
+def _both(tmp, argv, name):
+    """Run argv through both CLIs with --output; the two tables."""
+    out = []
+    for tag, fn in (("jax", jax_main), ("torch", main)):
+        path = tmp / f"{name}_{tag}.tsv"
+        assert fn(["--platform", "cpu", *argv, "--output", str(path)]) == 0
+        out.append(pd.read_csv(path, sep="\t"))
+    return out
+
+
+@pytest.mark.parametrize("posterior", [False, True])
+def test_sample_frame_matches_jax(files, posterior):
+    argv = ["sample", "y :~| SqExp(:x; l=1.5)", "--at", "x = rand(Uniform(-5,5), 30)",
+            "--seed", "3"]
+    if posterior:
+        argv = ["sample", "y ~| SqExp(:x)", "--at", "x=-5:0.5:5", "--seed", "3",
+                "--data", str(files / "data.tsv"), "--mcmc", str(files / "chain1.tsv")]
+    ref, got = _both(files, argv, f"sample{int(posterior)}")
+    assert list(got.columns) == list(ref.columns) == ["x", "y"]
+    np.testing.assert_array_equal(got["x"].to_numpy(), ref["x"].to_numpy())
+    assert np.isfinite(got["y"]).all()
+
+
+def test_sample_draws_are_mean_plus_L_z():
+    """Prior and posterior draws: the port's mean and factor with
+    gaplac_tpu's normal variates give gaplac_tpu's draw."""
+    rng = np.random.default_rng(4)
+    x, xt, y = rng.uniform(-5, 5, 40), np.linspace(-5, 5, 21), rng.normal(size=40)
+    spec = "y ~| SqExp(:x; l=1.3)"
+    jck, ck = jax_compile(jax_parse(spec).formula), compile_formula(parse_formula(spec).formula)
+    jp, p = jck.default_params(jnp.float64), ck.default_params(torch.float64)
+    key = jax.random.key(5)
+
+    K = jck.gram(jp, jnp.asarray(x[:, None]))
+    z = np.asarray(jax.random.normal(key, (40,), jnp.float64))
+    L = mvn.chol(ck.gram(p, torch.as_tensor(x[:, None])), 0.1)
+    _close(L.numpy() @ z, jmvn.sample_mvn(key, K, jitter=0.1))
+
+    jX, jXt = jnp.asarray(x[:, None]), jnp.asarray(xt[:, None])
+    jpost = jmvn.gp_posterior_cache(jck.gram(jp, jX) + 0.1 * jnp.eye(40), jnp.asarray(y), 1.0)
+    jmu = jmvn.gp_predict_mean(jpost, jck.gram(jp, jXt, jX))
+    jcov = jmvn.gp_predict_cov(jpost, jck.gram(jp, jXt, jX), jck.gram(jp, jXt))
+    mu, cov = sample_cmd.posterior_at(ck, p, torch.as_tensor(x[:, None]),
+                                      torch.as_tensor(xt[:, None]), torch.as_tensor(y), 0.1, 1.0)
+    _close(mu, jmu)
+    _close(cov, jcov)
+    zt = np.asarray(jax.random.normal(key, (21,), jnp.float64))
+    Lt = mvn.chol(cov, 0.1)
+    _close(mu.numpy() + Lt.numpy() @ zt, jmvn.sample_mvn(key, jcov, mean=jmu, jitter=0.1))
+
+    # and the port's own draw is mean + L z of its generator's variates
+    zg = torch.randn(21, generator=torch.Generator().manual_seed(7), dtype=torch.float64)
+    draw = mvn.sample_mvn_chol(torch.Generator().manual_seed(7), Lt, mean=mu)
+    _close(draw, mu + Lt @ zg)
+
+
+def _select_both(argv):
+    jb = jselect.run(jax_parser().parse_args(["--platform", "cpu", *argv]))
+    tb = select_cmd.run(build_parser().parse_args(["--platform", "cpu", *argv]), CPU64)
+    return jb, tb
+
+
+def test_select_chains_matches_jax(files):
+    jb, tb = _select_both(["select", "--chains", str(files / "chain1.tsv"),
+                           str(files / "chain2.tsv")])
+    _close(tb, jb)
+    lp = pd.read_csv(files / "chain1.tsv", sep="\t")["lp"].to_numpy()
+    _close(select_cmd.log2_harmonic_mean(lp), jselect.log2_harmonic_mean(lp))
+
+
+def _fixed_lps(formulae, data):
+    """(port, gaplac_tpu) fixed-hyperparameter log densities of each formula."""
+    df = pd.read_csv(data, sep="\t")
+    out = []
+    for f in formulae:
+        jck = jax_compile(jax_parse(f).formula)
+        K = jck.gram(jck.default_params(jnp.float64), jnp.asarray(df[["x"]].to_numpy()))
+        ref = float(jmvn.mvn_logpdf(K, jnp.asarray(df["y"].to_numpy()), jitter=0.1))
+        out.append((select_cmd.fixed_lp(parse_formula(f), df, 0.1, CPU64), ref))
+    return out
+
+
+def test_select_formulae_matches_jax(files):
+    formulae = ["y ~| SqExp(:x)", "y ~| OU(:x; l=2.0) + Noise"]
+    data = files / "data.tsv"
+    jb, tb = _select_both(["select", "--formulae", *formulae, "--data", str(data)])
+    _close(tb, jb)
+    for got, ref in _fixed_lps(formulae, data):
+        _close(got, ref)
+
+
+@pytest.mark.parametrize("with_chain", [False, True])
+def test_predict_matches_jax(files, with_chain):
+    argv = ["predict", "y ~| SqExp(:x)", "--data", str(files / "data.tsv"), "--at",
+            "x=-6:0.25:6"]
+    if with_chain:
+        argv += ["--mcmc", str(files / "chain1.tsv")]
+    ref, got = _both(files, argv, f"predict{int(with_chain)}")
+    assert list(got.columns) == list(ref.columns) == ["x", "ymu", "yQ050", "yQ950"]
+    for col in ("x", "ymu", "yQ050", "yQ950"):
+        _close(got[col], ref[col])
+
+
+def test_slice_at_the_blocked_route_matches_jax(tmp_path, monkeypatch):
+    """select --formulae and predict on 2100 rows: the port factors through
+    the blocked route (K3's plain version), gaplac_tpu through LAPACK."""
+    tiles = []
+    tile = TC.chol_tile
+    monkeypatch.setattr(TC, "chol_tile", lambda A: tiles.append(A.shape) or tile(A))
+    data = tmp_path / "big.tsv"
+    _write_data(data, 2100, 6)
+    _write_chain(tmp_path / "chain.tsv", 2, 7)
+    formulae = ["y ~| SqExp(:x)", "y ~| OU(:x)"]
+    jb, tb = _select_both(["select", "--formulae", *formulae, "--data", str(data)])
+    _close(tb, jb)
+    assert len(tiles) == 2 * 17  # 2100 rows pad to 17 tiles of 128, once per formula
+    ref, got = _both(tmp_path, ["predict", "y ~| SqExp(:x)", "--data", str(data), "--at",
+                                "x=-5:0.5:5", "--mcmc", str(tmp_path / "chain.tsv")], "big")
+    for col in ("ymu", "yQ050", "yQ950"):
+        _close(got[col], ref[col])
+    assert len(tiles) == 4 * 17
+
+
+def test_guide_select_formulae_oracle_through_the_port(tmp_path, capsys):
+    """tests/test_guide_parity.py's select --formulae oracle: the guide's data
+    (gaplac_tpu's sample at seed 4), SqExp vs OU at l=1.5; the Bayes factor
+    lies in the 5-seed band [4.0, 11.3] and equals gaplac_tpu's."""
+    data = tmp_path / "data.tsv"
+    assert jax_main(["--platform", "cpu", "sample", "y :~| SqExp(:x; l=1.5)", "--at",
+                     "x = rand(Uniform(-5,5), 50)", "--seed", "4", "--output", str(data)]) == 0
+    argv = ["select", "--formulae", "y ~| SqExp(:x, l=1.5)", "y ~| OU(:x, l=1.5)", "--data",
+            str(data)]
+    assert main(["--platform", "cpu", *argv]) == 0
+    out = capsys.readouterr().out
+    assert float(out.split("**Log2 Bayes**:")[1].splitlines()[0]) > 0
+    jb, tb = _select_both(argv)
+    assert 4.0 <= tb <= 11.3, tb
+    _close(tb, jb)

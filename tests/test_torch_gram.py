@@ -11,6 +11,7 @@ import torch
 from gaplac_tpu.dsl import parse_formula
 from gaplac_tpu.kernels.covariance import compile_formula as jax_compile
 from gaplac_tpu.ops.gram import pallas_gram
+from gaplac_tpu_torch.dsl import parse_formula as torch_parse
 from gaplac_tpu_torch.kernels.covariance import CompiledKernel, compile_formula
 from gaplac_tpu_torch.ops.gram import GramBound, descriptor, gram_bwd_plain
 
@@ -37,7 +38,7 @@ def _params(ck, seed, C=3):
 
 def _cks(formula):
     jck = jax_compile(parse_formula(formula).formula)
-    return jck, compile_formula(parse_formula(formula).formula)
+    return jck, compile_formula(torch_parse(formula).formula)
 
 
 @pytest.mark.parametrize("formula", FORMULAS)

@@ -12,6 +12,7 @@ from gaplac_tpu.inference.likelihoods import make_loglik as jax_make_loglik
 from gaplac_tpu.inference.model import build_model as jax_build_model
 from gaplac_tpu.inference.priors import parse_prior as jax_parse_prior
 from gaplac_tpu.kernels.covariance import compile_formula as jax_compile
+from gaplac_tpu_torch.dsl import parse_formula as torch_parse
 from gaplac_tpu_torch.inference.hmc import value_and_grad
 from gaplac_tpu_torch.inference.likelihoods import make_loglik
 from gaplac_tpu_torch.inference.model import build_model
@@ -49,8 +50,9 @@ def _models(formula, inferable, extras, shared, X, y, prior, marginalize):
     jm = jax_build_model(jax_compile(spec.formula), inferable, jnp.asarray(X), jnp.asarray(y),
                          spec.likelihood, prior_bounds=jax_parse_prior(prior),
                          shared_hyper=shared, marginalize=marginalize, infer_extras=extras)
-    tm = build_model(compile_formula(spec.formula), inferable, torch.as_tensor(X),
-                     torch.as_tensor(y), spec.likelihood, prior_bounds=torch_parse_prior(prior),
+    tspec = torch_parse(formula)
+    tm = build_model(compile_formula(tspec.formula), inferable, torch.as_tensor(X),
+                     torch.as_tensor(y), tspec.likelihood, prior_bounds=torch_parse_prior(prior),
                      shared_hyper=shared, marginalize=marginalize, infer_extras=extras)
     return jm, tm
 
@@ -126,9 +128,10 @@ def test_priors_match_jax(prior):
                                  "y : StudentT(3, 0.7) ~| SqExp(:x)",
                                  "y : Binomial(Reads) ~| SqExp(:x)"])
 def test_likelihoods_match_jax(lik):
-    spec = parse_formula(lik).likelihood
     rng = np.random.default_rng(8)
     y, f, aux = rng.integers(0, 6, 9).astype(float), rng.normal(size=9), np.full(9, 7.0)
-    ref = jax_make_loglik(spec)(jnp.asarray(y), jnp.asarray(f), jnp.asarray(aux))
-    got = make_loglik(spec)(torch.as_tensor(y), torch.as_tensor(f), torch.as_tensor(aux))
+    ref = jax_make_loglik(parse_formula(lik).likelihood)(jnp.asarray(y), jnp.asarray(f),
+                                                         jnp.asarray(aux))
+    got = make_loglik(torch_parse(lik).likelihood)(torch.as_tensor(y), torch.as_tensor(f),
+                                                   torch.as_tensor(aux))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-12)

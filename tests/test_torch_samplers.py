@@ -10,7 +10,7 @@ from scipy.special import logsumexp
 
 from gaplac_tpu.inference import chees as jchees
 from gaplac_tpu.inference import hmc as jhmc
-from gaplac_tpu.dsl import parse_formula
+from gaplac_tpu_torch.dsl import parse_formula
 from gaplac_tpu_torch.inference import hmc
 from gaplac_tpu_torch.inference.chees import halton, run_chees
 from gaplac_tpu_torch.inference.model import build_model
