@@ -4,8 +4,10 @@
 
 Builds the port's CUDA kernels from ``gaplac_tpu_torch/csrc`` (one nvcc per
 source, all started together), holds each against its plain PyTorch version
-at the shapes of the main paths, times both beside the one PyTorch call that
-computes the same function where there is one, then drives two paths through
+at the shapes of the main paths (K1 at both cluster sizes of
+``K1_CLUSTERS``, K3 on contiguous tiles and on strided views), times both
+beside the one PyTorch call that computes the same function where there is
+one, then drives two paths through
 the CLI entry point (``gaplac_tpu_torch.cli.main.main``) on the card, the
 kernels' launch counts set to 0 just before each and read just after:
 
@@ -48,6 +50,7 @@ N_BIG = 4096      # rows of the sample/select/predict path (the dense model's la
 N_AT = 1024       # predict's --at points
 PREDICT_CHECK_DRAWS = 4  # chain draws of the predict run held against the CPU
 K3_TILE = 128     # K3's tile (ops/cholesky.py CHOL_TILE)
+K1_CLUSTERS = (8, 16)  # K1's cluster sizes, each checked and timed beside the launcher's choice
 DETERMINISM_LAUNCHES = 20
 
 #: published peaks of one H100 SXM (float32 outside the tensor cores; HBM3)
@@ -121,6 +124,23 @@ def time_ms(fn) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, calls: int = TIMING_REPS) -> float:
+    """Device time per call of the kernels ``fn`` launches: torch.profiler's
+    sum of CUDA kernel (and copy) time over ``calls`` calls after a warmup.
+    Unlike time_ms, it leaves out the host's time to reach the launch, which
+    is most of a call for a kernel of a few microseconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / calls
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -143,12 +163,15 @@ def phase_card_and_build():
 
 def phase_k1(dev):
     from gaplac_tpu_torch.ops.cholesky import (CholeskyBatched, chol_batched_cuda,
-                                               chol_batched_plain)
+                                               chol_batched_plain, k1_clusters_that_fit)
 
-    log("[2] K1 batched Cholesky against torch.linalg.cholesky_ex")
+    fit = {cl: k1_clusters_that_fit(cl, torch.float32) for cl in K1_CLUSTERS}
+    log("[2] K1 batched Cholesky, one cluster a matrix, against torch.linalg.cholesky_ex; "
+        "clusters the card holds at once, float32: "
+        + ", ".join(f"{v} of {cl} blocks" for cl, v in fit.items()))
     rng = np.random.default_rng(11)
     main_err = None
-    for B, n in ((CHAINS, N_OBS), (3, 37), (1, 257)):
+    for B, n in ((CHAINS, N_OBS), (1, N_OBS), (3, 37), (1, 257)):
         x = rng.uniform(-5, 5, n)
         A64 = torch.as_tensor(sqexp_gram(x, rng.uniform(1.0, 2.0, B), 0.1), device=dev)
         ref = chol_batched_plain(A64)
@@ -169,6 +192,9 @@ def phase_k1(dev):
             check_accuracy(f"K1 factor {tag}", Lk, Lp, ref)
             if (B, n) == (CHAINS, N_OBS) and dtype == torch.float32:
                 main_err = float((Lk - Lp).abs().max())
+            for cl in K1_CLUSTERS if n == N_OBS else ():  # each size, timed in phase 5
+                check_accuracy(f"K1 factor {tag}, clusters of {cl}",
+                               chol_batched_cuda(A, cluster=cl), Lp, ref)
 
             # gradient through CholeskyBatched against autograd of the plain op
             W = torch.as_tensor(rng.normal(size=(B, n, n)), device=dev)
@@ -189,7 +215,7 @@ def phase_k1(dev):
         if not (torch.isnan(L[1]).all() and torch.isfinite(L[[0, 2]]).all()):
             raise AssertionError(f"K1 {dtype}: a non-PD member must give NaN, the rest finite")
     log("  non-PD member -> NaN factor, other members finite: ok")
-    return main_err
+    return main_err, fit
 
 
 def phase_k2(dev):
@@ -259,27 +285,39 @@ def phase_k3(dev):
     factorization through K3 against torch.linalg.cholesky."""
     from gaplac_tpu_torch.ops.cholesky import blocked_cholesky, chol_tile_cuda, chol_tile_plain
 
-    log("[3b] K3 Cholesky tile against chol_tile_plain (torch.linalg.cholesky_ex)")
+    log("[3b] K3 Cholesky tile against chol_tile_plain (torch.linalg.cholesky_ex), on "
+        "contiguous tiles and on strided views")
     main_err = None
     for n in (K3_TILE, K3_TILE - 1, 37):
         A64 = spd(n, n, dev)
         ref = chol_tile_plain(A64)
         for dtype in (torch.float32, torch.float64):
-            Lk = chol_tile_cuda(A64.to(dtype))
             Lp = chol_tile_plain(A64.to(dtype))
-            torch.cuda.synchronize()
-            tag = f"({n},{n}) {str(dtype)[6:]}"
-            if float(Lk.triu(1).abs().max()) != 0.0:
-                raise AssertionError(f"K3 {tag}: nonzero upper triangle")
-            check_accuracy(f"K3 tile {tag}", Lk, Lp, ref)
-            if n == K3_TILE and dtype == torch.float32:
-                main_err = float((Lk - Lp).abs().max())
+            # the tile as a block of a larger matrix (lda > n), its factor into
+            # a block of another (ldl > n) whose other entries must not change
+            big = torch.full((n + 40, n + 56), -3.0, dtype=dtype, device=dev)
+            big[7:7 + n, 13:13 + n] = A64.to(dtype)
+            out = torch.full((n + 30, n + 70), 7.0, dtype=dtype, device=dev)
+            outside = torch.ones_like(out, dtype=torch.bool)
+            outside[5:5 + n, 21:21 + n] = False
+            for layout, Lk in (("contiguous", chol_tile_cuda(A64.to(dtype))),
+                               ("strided", chol_tile_cuda(big[7:7 + n, 13:13 + n],
+                                                          out[5:5 + n, 21:21 + n]))):
+                torch.cuda.synchronize()
+                tag = f"({n},{n}) {str(dtype)[6:]} {layout}"
+                if float(Lk.triu(1).abs().max()) != 0.0:
+                    raise AssertionError(f"K3 {tag}: nonzero upper triangle")
+                check_accuracy(f"K3 tile {tag}", Lk, Lp, ref)
+                if n == K3_TILE and dtype == torch.float32 and layout == "contiguous":
+                    main_err = float((Lk - Lp).abs().max())
+            if not bool((out[outside] == 7.0).all()):
+                raise AssertionError(f"K3 ({n},{n}) {dtype}: wrote outside its output view")
         bad = A64.clone()
         bad[n // 2, n // 2] = -1.0
         for dtype in (torch.float32, torch.float64):
             if not torch.isnan(chol_tile_cuda(bad.to(dtype))).all():
                 raise AssertionError(f"K3 ({n},{n}) {dtype}: a non-PD tile must give NaN")
-    log("  non-PD tile -> NaN factor: ok")
+    log("  non-PD tile -> NaN factor: ok; strided output view: nothing written outside it")
 
     log("[3c] blocked_cholesky through K3 against torch.linalg.cholesky (cuSOLVER)")
     for n in (N_BIG, 2 * N_BIG):
@@ -336,9 +374,9 @@ def phase_model_parity(dev):
 def phase_timings(dev):
     from gaplac_tpu_torch import parse_formula
     from gaplac_tpu_torch.kernels.covariance import compile_formula
-    from gaplac_tpu_torch.ops.cholesky import (blocked_cholesky, chol_batched_cuda,
-                                               chol_batched_plain, chol_tile_cuda,
-                                               chol_tile_plain)
+    from gaplac_tpu_torch.ops.cholesky import (K1_CLUSTER, blocked_cholesky,
+                                               chol_batched_cuda, chol_batched_plain,
+                                               chol_tile_cuda, chol_tile_plain)
     from gaplac_tpu_torch.ops.gram import gram_bwd_cuda, gram_bwd_plain, gram_cuda, gram_plain
 
     log(f"[5] times at the main paths' shapes, float32, median of {TIMING_REPS}")
@@ -346,6 +384,7 @@ def phase_timings(dev):
     x = rng.uniform(-5, 5, N_OBS)
     A = torch.as_tensor(sqexp_gram(x, rng.uniform(1, 2, CHAINS), 0.1), device=dev,
                         dtype=torch.float32)
+    A1 = A[:1].contiguous()  # NUTS factors one matrix at a time
     ck = compile_formula(parse_formula("y ~| SqExp(:x)").formula)
     X = torch.as_tensor(x[:, None], device=dev, dtype=torch.float32)
     p = torch.as_tensor(rng.uniform(1, 2, (CHAINS, 1)), device=dev, dtype=torch.float32)
@@ -366,9 +405,18 @@ def phase_timings(dev):
 
     # (kernel, plain version, the one PyTorch call computing the same function or
     #  None, flops, bytes): bytes count each input read once, each output written once
-    rows = {
-        "K1": (lambda: chol_batched_cuda(A), lambda: chol_batched_plain(A),
-               lambda: torch.linalg.cholesky_ex(A), CHAINS * n ** 3 / 3, chol_bytes(CHAINS, n)),
+    rows = {}
+    for cl in (K1_CLUSTER,) + K1_CLUSTERS:  # the launcher's choice, then each size
+        tag = "" if cl == K1_CLUSTER else f" cluster {cl}"
+        rows[f"K1{tag}"] = (lambda cl=cl: chol_batched_cuda(A, cluster=cl),
+                            lambda: chol_batched_plain(A), lambda: torch.linalg.cholesky_ex(A),
+                            CHAINS * n ** 3 / 3, chol_bytes(CHAINS, n))
+        # K1 at NUTS's (1, 500, 500)
+        rows[f"K1 C=1{tag}"] = (lambda cl=cl: chol_batched_cuda(A1, cluster=cl),
+                                lambda: chol_batched_plain(A1),
+                                lambda: torch.linalg.cholesky_ex(A1), n ** 3 / 3,
+                                chol_bytes(1, n))
+    rows.update({
         "K2": (lambda: gram_cuda(ck, p, X, None, 0.1), lambda: gram_plain(ck, p, X, None, 0.1),
                None, 6 * CHAINS * n * n, CHAINS * n * n * 4 + 4 * (n + CHAINS)),
         # K2 at path 2's largest gram, (1, 4096, 4096)
@@ -383,17 +431,22 @@ def phase_timings(dev):
         # the blocked factorization at n = 4096 (K3 its base case), against cuSOLVER
         "blocked": (lambda: blocked_cholesky(B, base=K3_TILE), blocked_plain,
                     lambda: torch.linalg.cholesky(B), N_BIG ** 3 / 3, chol_bytes(1, N_BIG)),
-    }
+    })
     times = {}
     for k, (kern, plain, lib, flops, nbytes) in rows.items():
         # plain, kernel, kernel, plain (and library, library): in turns, in one call
         tp1, tk1, tk2, tp2 = time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)
         tl = float(np.median([time_ms(lib), time_ms(lib)])) if lib is not None else None
+        dk = device_ms(kern)
+        dl = device_ms(lib) if lib is not None else None
         b, by = bound_ms(flops, nbytes)
         times[k] = {"ms": float(np.median([tk1, tk2])), "plain_ms": float(np.median([tp1, tp2])),
-                    "library_ms": tl, "bound_ms": b, "bound_by": by}
+                    "library_ms": tl, "bound_ms": b, "bound_by": by, "device_ms": dk,
+                    "library_device_ms": dl}
         log(f"  {k}: kernel {tk1:.4f} / {tk2:.4f} ms, plain {tp1:.4f} / {tp2:.4f} ms, "
-            f"library {'none' if tl is None else f'{tl:.4f} ms'}, bound {b:.4g} ms ({by})")
+            f"library {'none' if tl is None else f'{tl:.4f} ms'}, bound {b:.4g} ms ({by}); "
+            f"device time: kernel {dk:.4f} ms, library "
+            f"{'none' if dl is None else f'{dl:.4f} ms'}")
     times["blocked"]["profile"] = profile_blocked(B)
     return times
 
@@ -440,8 +493,12 @@ def plain_kernels():
     from gaplac_tpu_torch.ops import cholesky as C
     from gaplac_tpu_torch.ops import gram as G
 
+    def tile_plain(A, out=None):
+        L = C.chol_tile_plain(A)
+        return L if out is None else out.copy_(L)
+
     swaps = ((C, "chol_batched_cuda", C.chol_batched_plain),
-             (C, "chol_tile_cuda", C.chol_tile_plain),
+             (C, "chol_tile_cuda", tile_plain),
              (G, "gram_cuda", G.gram_plain), (G, "gram_bwd_cuda", G.gram_bwd_plain))
     saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
     for m, name, plain in swaps:
@@ -680,7 +737,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = phase_card_and_build()
-    k1_err = phase_k1(dev)
+    k1_err, k1_fit = phase_k1(dev)
     k2_errs = phase_k2(dev)
     k3_err = phase_k3(dev)
     phase_model_parity(dev)
@@ -702,6 +759,12 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                "launches": sum(by_path.values()), "launches_by_path": by_path,
                "max_abs_err": err, **times[key]}
+        if key == "K1":
+            row["cluster"] = {"rule": "16 where the batch's clusters of 16 fit at once, else 8",
+                              "clusters_that_fit": k1_fit}
+            row["C1"] = times["K1 C=1"]
+            row["other_clusters"] = {k: v for k, v in times.items()
+                                     if k.startswith("K1") and "cluster" in k}
         if key == "K2":
             row["path2"] = {"max_abs_err": path2_checks["K2"], **times["K2 n=4096"]}
         if key == "K3":

@@ -40,8 +40,8 @@ _lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "gaplac_chol_batched_f32": (_P, _I, _I, _I, _P),
-    "gaplac_chol_batched_f64": (_P, _I, _I, _I, _P),
+    "gaplac_chol_batched_f32": (_P, _I, _I, _I, _I, _P),
+    "gaplac_chol_batched_f64": (_P, _I, _I, _I, _I, _P),
     "gaplac_gram_fwd_f32": (_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _I, ctypes.c_double,
                             _I, _P, _I, _P),
     "gaplac_gram_fwd_f64": (_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _I, ctypes.c_double,
@@ -50,8 +50,9 @@ _SIGNATURES = {
                             _P),
     "gaplac_gram_bwd_f64": (_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _I,
                             _P),
-    "gaplac_chol_tile_f32": (_P, _P, _I, _I, _P),
-    "gaplac_chol_tile_f64": (_P, _P, _I, _I, _P),
+    "gaplac_chol_batched_clusters": (_I, _I, _I),
+    "gaplac_chol_tile_f32": (_P, _I, _P, _I, _I, _I, _P),
+    "gaplac_chol_tile_f64": (_P, _I, _P, _I, _I, _I, _P),
 }
 
 
@@ -128,15 +129,16 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda(what: str, *tensors: torch.Tensor) -> torch.dtype:
+def require_cuda(what: str, *tensors: torch.Tensor, contiguous: bool = True) -> torch.dtype:
     """Check that the kernel's tensors share one CUDA device and one float
-    dtype (float32 or float64) and are contiguous; returns the dtype."""
+    dtype (float32 or float64) and, unless ``contiguous`` is False, are
+    contiguous; returns the dtype."""
     t0 = tensors[0]
     for t in tensors:
         if not t.is_cuda or t.device != t0.device:
             raise ValueError(f"{what}: all tensors must be on one CUDA device")
         if t.dtype != t0.dtype or t.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"{what}: tensors must all be float32 or all float64")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")
     return t0.dtype

@@ -64,7 +64,7 @@ def test_split_point_matches_jax(n):
 def _counting(monkeypatch, name):
     calls = []
     fn = getattr(TC, name)
-    monkeypatch.setattr(TC, name, lambda A: calls.append(tuple(A.shape)) or fn(A))
+    monkeypatch.setattr(TC, name, lambda A, *out: calls.append(tuple(A.shape)) or fn(A, *out))
     return calls
 
 
@@ -92,3 +92,30 @@ def test_blocked_route_gradient_matches_batched():
         (g,) = torch.autograd.grad((torch.sin(fn(At)) * W).sum(), At)
         grads.append(g.numpy())
     np.testing.assert_allclose(grads[0], grads[1], rtol=GRAD_TOL, atol=1e-12)
+
+
+def test_blocked_cholesky_leaves_its_input_unmodified():
+    """The recursion reads views of A and writes views of its own factor."""
+    A = torch.as_tensor(_spd(300, 6))
+    before = A.clone()
+    L = TC.blocked_cholesky(A, base=64)
+    assert torch.equal(A, before)
+    assert L.data_ptr() != A.data_ptr()
+    np.testing.assert_allclose(L.numpy(), np.linalg.cholesky(before.numpy()), rtol=F64_TOL,
+                               atol=F64_TOL * 300)
+
+
+def test_chol_tile_writes_into_its_view_and_nowhere_else():
+    """chol_tile reads a block of a larger matrix and writes the factor into a
+    block of another; every entry outside the output block keeps its value."""
+    n = 37
+    big = torch.as_tensor(np.random.default_rng(8).normal(size=(60, 70)))
+    big[5:5 + n, 9:9 + n] = torch.as_tensor(_spd(n, 9))
+    out = torch.full((50, 80), 7.0, dtype=torch.float64)
+    view = out[3:3 + n, 11:11 + n]
+    assert TC.chol_tile(big[5:5 + n, 9:9 + n], view) is view
+    np.testing.assert_allclose(view.numpy(), np.linalg.cholesky(_spd(n, 9)), rtol=F64_TOL,
+                               atol=F64_TOL)
+    outside = torch.ones_like(out, dtype=torch.bool)
+    outside[3:3 + n, 11:11 + n] = False
+    assert (out[outside] == 7.0).all()

@@ -168,7 +168,7 @@ def test_slice_at_the_blocked_route_matches_jax(tmp_path, monkeypatch):
     the blocked route (K3's plain version), gaplac_tpu through LAPACK."""
     tiles = []
     tile = TC.chol_tile
-    monkeypatch.setattr(TC, "chol_tile", lambda A: tiles.append(A.shape) or tile(A))
+    monkeypatch.setattr(TC, "chol_tile", lambda A, L: tiles.append(A.shape) or tile(A, L))
     data = tmp_path / "big.tsv"
     _write_data(data, 2100, 6)
     _write_chain(tmp_path / "chain.tsv", 2, 7)

@@ -17,12 +17,17 @@ from gaplac_tpu_torch.dsl import parse_formula
 from gaplac_tpu_torch.kernels.covariance import compile_formula
 from gaplac_tpu_torch.ops import _build
 from gaplac_tpu_torch.ops.cholesky import (blocked_cholesky, chol_batched_cuda,
-                                           chol_batched_plain, chol_tile_cuda, chol_tile_plain)
+                                           chol_batched_plain, chol_tile_cuda, chol_tile_plain,
+                                           k1_clusters_that_fit)
 from gaplac_tpu_torch.ops.gram import gram_bwd_cuda, gram_bwd_plain, gram_cuda, gram_plain
 
 pytestmark = pytest.mark.cuda
 
 F64_RTOL = 1e-10  # float64 kernels against float64 plain versions
+#: a float32 kernel against the float64 plain version: at most this multiple
+#: of the float32 plain version's own error, or F32_FLOOR (relative), since
+#: the kernel sums in another order than cuSOLVER but in the same precision
+F32_FACTOR, F32_FLOOR = 4.0, 1e-5
 
 
 @pytest.fixture
@@ -37,16 +42,68 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-@pytest.mark.parametrize("n", [1, 31, 32, 33, 100, 129])
-def test_k1_matches_plain(dev, n):
-    X = torch.randn((4, n, n), dtype=torch.float64, device=dev,
-                    generator=torch.Generator(device=dev).manual_seed(n))
-    A = X @ X.mT + n * torch.eye(n, dtype=torch.float64, device=dev)
-    before = _build.counts["K1"]
-    L = chol_batched_cuda(A)
-    assert _build.counts["K1"] == before + 1
-    assert _rel(L, chol_batched_plain(A)) < F64_RTOL
+def _spd(shape, seed, dev):
+    """X X^T + n I, float64: SPD with eigenvalues at least n."""
+    n = shape[-1]
+    X = torch.randn(shape, dtype=torch.float64, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed))
+    return X @ X.mT + n * torch.eye(n, dtype=torch.float64, device=dev)
+
+
+def _check_factor(L, A64, plain):
+    """L (the kernel's factor of A64 in L's dtype) against ``plain`` applied
+    in float64, with the float32 rule or F64_RTOL."""
+    ref = plain(A64)
+    if L.dtype == torch.float64:
+        assert _rel(L, ref) < F64_RTOL
+    else:
+        tol = max(F32_FACTOR * _rel(plain(A64.float()).double(), ref), F32_FLOOR)
+        assert _rel(L.double(), ref) <= tol
     assert float(L.triu(1).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 100, 129, 500, 2047])
+@pytest.mark.parametrize("batch", [1, 3, 8])
+def test_k1_matches_plain(dev, batch, n, dtype):
+    """One cluster per matrix; ragged panels (31, 33, 129, 2047) and n below,
+    at and past the panel and the trailing tile; one launch a call."""
+    A = _spd((batch, n, n), 10 * batch + n, dev)
+    before = _build.counts["K1"]
+    L = chol_batched_cuda(A.to(dtype))
+    assert _build.counts["K1"] == before + 1
+    _check_factor(L, A, chol_batched_plain)
+
+
+def test_k1_three_dimensional_batch_past_the_blocked_threshold(dev):
+    """A 3-D batch with n >= 2048 still goes to K1 (ops/linalg.py)."""
+    A = _spd((2, 2100, 2100), 2, dev)
+    _check_factor(chol_batched_cuda(A), A, chol_batched_plain)
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k1_cluster_sizes(dev, cluster, dtype):
+    """The portable cluster of 8 and the non-portable 16 give the same factor."""
+    A = _spd((8, 500, 500), 3, dev)
+    _check_factor(chol_batched_cuda(A.to(dtype), cluster=cluster), A, chol_batched_plain)
+
+
+def test_k1_cluster_occupancy(dev):
+    """The card holds at least one cluster of each size K1 launches."""
+    for dtype in (torch.float32, torch.float64):
+        assert k1_clusters_that_fit(8, dtype) >= 1
+        assert k1_clusters_that_fit(16, dtype) >= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k1_non_pd_member_is_nan_and_the_others_finite(dev, dtype):
+    A = _spd((3, 100, 100), 4, dev)
+    A[1, 60, 60] = -1e4
+    L = chol_batched_cuda(A.to(dtype))
+    assert torch.isnan(L[1]).all()
+    assert torch.isfinite(L[[0, 2]]).all()
+    _check_factor(L[[0, 2]], A[[0, 2]], chol_batched_plain)
 
 
 @pytest.mark.parametrize("formula", [
@@ -95,14 +152,38 @@ def test_k3_matches_plain(dev, n, dtype):
     assert torch.isnan(chol_tile_cuda(-A.to(dtype))).all()
 
 
-def test_blocked_through_k3_matches_cholesky(dev):
-    gen = torch.Generator(device=dev).manual_seed(1)
-    X = torch.randn((700, 700), dtype=torch.float64, device=dev, generator=gen)
-    A = X @ X.mT + 700 * torch.eye(700, dtype=torch.float64, device=dev)
+@pytest.mark.parametrize("n", [1, 37, 127, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k3_on_strided_views(dev, n, dtype):
+    """K3 reads a block of a larger matrix (lda > n) and writes the factor into
+    a block of another (ldl > n); nothing outside that block changes."""
+    A = _spd((n, n), 100 + n, dev)
+    big = torch.randn((n + 40, n + 56), dtype=torch.float64, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(n)).to(dtype)
+    big[7:7 + n, 13:13 + n] = A.to(dtype)
+    out = torch.full((n + 30, n + 70), 7.0, dtype=dtype, device=dev)
+    view = out[5:5 + n, 21:21 + n]
     before = _build.counts["K3"]
-    L = blocked_cholesky(A)
-    assert _build.counts["K3"] - before == 6  # 700 pads to 768: six 128-tiles
-    assert _rel(L, torch.linalg.cholesky(A)) < F64_RTOL
+    assert chol_tile_cuda(big[7:7 + n, 13:13 + n], view) is view
+    assert _build.counts["K3"] == before + 1
+    _check_factor(view, A, chol_tile_plain)
+    outside = torch.ones_like(out, dtype=torch.bool)
+    outside[5:5 + n, 21:21 + n] = False
+    assert (out[outside] == 7.0).all()
+    big[7 + n // 2, 13 + n // 2] = -1.0  # not positive definite: the whole view is NaN
+    assert torch.isnan(chol_tile_cuda(big[7:7 + n, 13:13 + n], view)).all()
+    assert (out[outside] == 7.0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n, tiles", [(700, 6), (4096, 32)])  # 700 pads to 768
+def test_blocked_through_k3_matches_cholesky(dev, n, tiles, dtype):
+    """The blocked route (at path 2's n, and ragged) against cuSOLVER."""
+    A = _spd((n, n), n, dev)
+    before = _build.counts["K3"]
+    L = blocked_cholesky(A.to(dtype))
+    assert _build.counts["K3"] - before == tiles
+    _check_factor(L, A, torch.linalg.cholesky)
 
 
 def test_wrappers_refuse_cpu_tensors(dev):
@@ -112,3 +193,5 @@ def test_wrappers_refuse_cpu_tensors(dev):
         chol_tile_cuda(torch.eye(3, dtype=torch.float64))
     with pytest.raises(ValueError):  # beyond K3's tile
         chol_tile_cuda(torch.eye(129, dtype=torch.float64, device=dev))
+    with pytest.raises(ValueError):  # rows not contiguous
+        chol_tile_cuda(torch.eye(8, dtype=torch.float64, device=dev).mT[::2, ::2])
