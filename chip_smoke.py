@@ -5,7 +5,11 @@
 Builds the port's CUDA kernels from ``gaplac_tpu_torch/csrc`` (one nvcc per
 source, all started together), holds each against its plain PyTorch version
 at the shapes of the main paths (K1 at both cluster sizes of
-``K1_CLUSTERS``, K3 on contiguous tiles and on strided views), times both
+``K1_CLUSTERS``, K2 and K2b also at the edge shapes of their 32-tiles with a
+cotangent that is not symmetric, K3 on contiguous tiles and on strided
+views), checks that a symmetric K2 output equals its transpose and that K2b
+repeats bit for bit and is one CUDA kernel a call, times each (CUDA events,
+the profiler's device time and, for K2 and K2b, the wrapper's host time)
 beside the one PyTorch call that computes the same function where there is
 one, then drives two paths through
 the CLI entry point (``gaplac_tpu_torch.cli.main.main``) on the card, the
@@ -25,12 +29,19 @@ when no CUDA device is available.  Its last line is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it holds the kernels'
 checks, times and bounds as JSON.  Data is made with numpy from fixed seeds;
 the tables go to ``chip_smoke_out/``.
+
+    python3 chip_smoke.py --gram-times
+
+times only K2 and K2b at the timed shapes (the wrapper's host time, events,
+the profiler's device time); copied into another checkout's root, the
+script times that checkout's kernels the same way.
 """
 
 from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import logging
 import subprocess
@@ -52,6 +63,9 @@ PREDICT_CHECK_DRAWS = 4  # chain draws of the predict run held against the CPU
 K3_TILE = 128     # K3's tile (ops/cholesky.py CHOL_TILE)
 K1_CLUSTERS = (8, 16)  # K1's cluster sizes, each checked and timed beside the launcher's choice
 DETERMINISM_LAUNCHES = 20
+#: K2/K2b edge shapes of their 32-tiles: rows n of a symmetric gram, and the
+#: columns of a cross gram with n rows (n2 % 4 != 0 takes the scalar path)
+K2_EDGE_N = {1: 3, 63: 64, 64: 70, 65: 128, N_OBS: 129}
 
 #: published peaks of one H100 SXM (float32 outside the tensor cores; HBM3)
 PEAK_F32_FLOPS = 67e12
@@ -221,7 +235,8 @@ def phase_k1(dev):
 def phase_k2(dev):
     from gaplac_tpu_torch import parse_formula
     from gaplac_tpu_torch.kernels.covariance import compile_formula
-    from gaplac_tpu_torch.ops.gram import gram_bwd_cuda, gram_bwd_plain, gram_cuda, gram_plain
+    from gaplac_tpu_torch.ops.gram import (gram_bwd_cluster, gram_bwd_cuda, gram_bwd_plain,
+                                           gram_cuda, gram_plain)
 
     log("[3] K2 gram and K2b gram backward against their plain versions")
     rng = np.random.default_rng(5)
@@ -264,19 +279,48 @@ def phase_k2(dev):
                 errs["K2"] = float((Kk - Kp).abs().max())
                 errs["K2b"] = float((dk - dp).abs().max())
 
+    # edge shapes of the 32-tiles, one chain and eight, symmetric and cross (n2 % 4
+    # == 0 takes the 16-byte path, other n2 the scalar one), and a cotangent that
+    # is not symmetric for a symmetric gram; a symmetric K2 must equal its
+    # transpose bit for bit
+    log("  edge shapes, composite formula, a cotangent that is not symmetric:")
+    for (n1, cross), C, sym in itertools.product(K2_EDGE_N.items(), (1, CHAINS), (True, False)):
+        n2 = None if sym else cross
+        X1 = data(n1, 2)
+        X2 = None if n2 is None else data(n2, 3)
+        n2v = n1 if n2 is None else n2
+        p64 = composite.default_params(torch.float64, dev).expand(C, -1).clone()
+        p64 = p64 * torch.as_tensor(rng.uniform(0.7, 1.4, p64.shape), device=dev)
+        G = torch.as_tensor(rng.normal(size=(C, n1, n2v)), device=dev)
+        Kref = gram_plain(composite, p64, X1, X2, 0.1)
+        dref = gram_bwd_plain(composite, p64, X1, X2, G)
+        for dtype in (torch.float32, torch.float64):
+            c = lambda t: None if t is None else t.to(dtype).contiguous()
+            tag = f"{'sym' if n2 is None else 'cross'} ({C},{n1},{n2v}) {str(dtype)[6:]}"
+            Kk = gram_cuda(composite, c(p64), c(X1), c(X2), 0.1)
+            check_accuracy(f"K2 {tag}", Kk, gram_plain(composite, c(p64), c(X1), c(X2), 0.1),
+                           Kref)
+            if n2 is None and not torch.equal(Kk, Kk.mT):
+                raise AssertionError(f"K2 {tag}: the symmetric gram is not symmetric bit for bit")
+            check_accuracy(f"K2b {tag}", gram_bwd_cuda(composite, c(p64), c(X1), c(X2), c(G)),
+                           gram_bwd_plain(composite, c(p64), c(X1), c(X2), c(G)), dref)
+    log("  every symmetric K2 output above equals its transpose bit for bit")
+
     # K2b sums in a fixed order: every launch gives the same bits
     ck = compile_formula(parse_formula("y ~| SqExp(:x)").formula)
     X = torch.as_tensor(rng.uniform(-5, 5, (N_OBS, 1)), device=dev, dtype=torch.float32)
-    p = torch.as_tensor(rng.uniform(1, 2, (CHAINS, 1)), device=dev, dtype=torch.float32)
-    G = torch.as_tensor(rng.normal(size=(CHAINS, N_OBS, N_OBS)), device=dev,
-                        dtype=torch.float32)
-    first = gram_bwd_cuda(ck, p, X, None, G)
-    spread = max(float((gram_bwd_cuda(ck, p, X, None, G) - first).abs().max())
-                 for _ in range(DETERMINISM_LAUNCHES - 1))
-    log(f"  K2b, {DETERMINISM_LAUNCHES} launches at ({CHAINS},{N_OBS},{N_OBS}) float32: "
-        f"largest difference from the first {spread:.3e} (must be 0)")
-    if spread != 0.0:
-        raise AssertionError("K2b is not bitwise repeatable")
+    for C in (CHAINS, 1):
+        p = torch.as_tensor(rng.uniform(1, 2, (C, 1)), device=dev, dtype=torch.float32)
+        G = torch.as_tensor(rng.normal(size=(C, N_OBS, N_OBS)), device=dev,
+                            dtype=torch.float32)
+        first = gram_bwd_cuda(ck, p, X, None, G)
+        spread = max(float((gram_bwd_cuda(ck, p, X, None, G) - first).abs().max())
+                     for _ in range(DETERMINISM_LAUNCHES - 1))
+        log(f"  K2b, {DETERMINISM_LAUNCHES} launches at ({C},{N_OBS},{N_OBS}) float32, "
+            f"clusters of {gram_bwd_cluster(C, torch.float32)}: largest difference from "
+            f"the first {spread:.3e} (must be 0)")
+        if spread != 0.0:
+            raise AssertionError(f"K2b is not bitwise repeatable at C = {C}")
     return errs
 
 
@@ -377,7 +421,7 @@ def phase_timings(dev):
     from gaplac_tpu_torch.ops.cholesky import (K1_CLUSTER, blocked_cholesky,
                                                chol_batched_cuda, chol_batched_plain,
                                                chol_tile_cuda, chol_tile_plain)
-    from gaplac_tpu_torch.ops.gram import gram_bwd_cuda, gram_bwd_plain, gram_cuda, gram_plain
+    from gaplac_tpu_torch.ops.gram import gram_bwd_cluster
 
     log(f"[5] times at the main paths' shapes, float32, median of {TIMING_REPS}")
     rng = np.random.default_rng(9)
@@ -416,16 +460,8 @@ def phase_timings(dev):
                                 lambda: chol_batched_plain(A1),
                                 lambda: torch.linalg.cholesky_ex(A1), n ** 3 / 3,
                                 chol_bytes(1, n))
+    rows.update(gram_rows(ck, p, X, G, pb, Xb))
     rows.update({
-        "K2": (lambda: gram_cuda(ck, p, X, None, 0.1), lambda: gram_plain(ck, p, X, None, 0.1),
-               None, 6 * CHAINS * n * n, CHAINS * n * n * 4 + 4 * (n + CHAINS)),
-        # K2 at path 2's largest gram, (1, 4096, 4096)
-        "K2 n=4096": (lambda: gram_cuda(ck, pb, Xb, None, 0.1),
-                      lambda: gram_plain(ck, pb, Xb, None, 0.1),
-                      None, 6 * N_BIG * N_BIG, N_BIG * N_BIG * 4 + 4 * (N_BIG + 1)),
-        "K2b": (lambda: gram_bwd_cuda(ck, p, X, None, G),
-                lambda: gram_bwd_plain(ck, p, X, None, G),
-                None, 10 * CHAINS * n * n, CHAINS * n * n * 4 + 4 * (n + 2 * CHAINS)),
         "K3": (lambda: chol_tile_cuda(T), lambda: chol_tile_plain(T),
                lambda: torch.linalg.cholesky(T), K3_TILE ** 3 / 3, chol_bytes(1, K3_TILE)),
         # the blocked factorization at n = 4096 (K3 its base case), against cuSOLVER
@@ -434,21 +470,89 @@ def phase_timings(dev):
     })
     times = {}
     for k, (kern, plain, lib, flops, nbytes) in rows.items():
+        if k.startswith("K2"):  # the wrapper's host time, before the rest
+            times[k] = {"host_ms": host_ms(kern)}
         # plain, kernel, kernel, plain (and library, library): in turns, in one call
         tp1, tk1, tk2, tp2 = time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)
         tl = float(np.median([time_ms(lib), time_ms(lib)])) if lib is not None else None
         dk = device_ms(kern)
         dl = device_ms(lib) if lib is not None else None
         b, by = bound_ms(flops, nbytes)
-        times[k] = {"ms": float(np.median([tk1, tk2])), "plain_ms": float(np.median([tp1, tp2])),
-                    "library_ms": tl, "bound_ms": b, "bound_by": by, "device_ms": dk,
-                    "library_device_ms": dl}
+        times.setdefault(k, {}).update({
+            "ms": float(np.median([tk1, tk2])), "plain_ms": float(np.median([tp1, tp2])),
+            "library_ms": tl, "bound_ms": b, "bound_by": by, "device_ms": dk,
+            "library_device_ms": dl})
+        host = times[k].get("host_ms")
         log(f"  {k}: kernel {tk1:.4f} / {tk2:.4f} ms, plain {tp1:.4f} / {tp2:.4f} ms, "
             f"library {'none' if tl is None else f'{tl:.4f} ms'}, bound {b:.4g} ms ({by}); "
             f"device time: kernel {dk:.4f} ms, library "
-            f"{'none' if dl is None else f'{dl:.4f} ms'}")
+            f"{'none' if dl is None else f'{dl:.4f} ms'}"
+            + ("" if host is None else f"; wrapper host time {host:.4f} ms"))
     times["blocked"]["profile"] = profile_blocked(B)
+    for k in ("K2b", "K2b C=1"):  # one kernel a call, and nothing else
+        names = kernels_per_call(rows[k][0])
+        log(f"  {k} profiled, CUDA kernels a call: {names}")
+        if len(names) != 1 or next(iter(names.values())) != 1:
+            raise AssertionError(f"{k}: one CUDA kernel a call expected, got {names}")
+        times[k]["kernels_per_call"] = names
+        times[k]["cluster"] = gram_bwd_cluster(1 if "C=1" in k else CHAINS, torch.float32)
     return times
+
+
+def gram_rows(ck, p, X, G, pb, Xb) -> dict:
+    """K2 and K2b at the paths' shapes, as phase 5's rows: (kernel, plain
+    version, library call, flops, bytes).  ck is SqExp(:x); p (CHAINS, 1), X
+    (N_OBS, 1), G (CHAINS, N_OBS, N_OBS); pb (1, 1), Xb (N_BIG, 1)."""
+    from gaplac_tpu_torch.ops.gram import gram_bwd_cuda, gram_bwd_plain, gram_cuda, gram_plain
+
+    n = N_OBS
+    p1, G1 = p[:1].contiguous(), G[:1].contiguous()  # NUTS: one chain
+    Xt = Xb[:N_AT].contiguous()  # predict's at-points against the data
+    fwd = lambda C, m: (6 * C * m * m, C * m * m * 4 + 4 * (m + C))
+    bwd = lambda C, m: (10 * C * m * m, C * m * m * 4 + 4 * (m + 2 * C))
+    return {
+        "K2": (lambda: gram_cuda(ck, p, X, None, 0.1), lambda: gram_plain(ck, p, X, None, 0.1),
+               None, *fwd(CHAINS, n)),
+        "K2 C=1": (lambda: gram_cuda(ck, p1, X, None, 0.1),
+                   lambda: gram_plain(ck, p1, X, None, 0.1), None, *fwd(1, n)),
+        # K2 at path 2's largest gram, (1, 4096, 4096), and predict's cross gram
+        "K2 n=4096": (lambda: gram_cuda(ck, pb, Xb, None, 0.1),
+                      lambda: gram_plain(ck, pb, Xb, None, 0.1), None, *fwd(1, N_BIG)),
+        "K2 cross": (lambda: gram_cuda(ck, pb, Xt, Xb), lambda: gram_plain(ck, pb, Xt, Xb),
+                     None, 6 * N_AT * N_BIG, N_AT * N_BIG * 4 + 4 * (N_AT + N_BIG + 1)),
+        "K2b": (lambda: gram_bwd_cuda(ck, p, X, None, G),
+                lambda: gram_bwd_plain(ck, p, X, None, G), None, *bwd(CHAINS, n)),
+        "K2b C=1": (lambda: gram_bwd_cuda(ck, p1, X, None, G1),
+                    lambda: gram_bwd_plain(ck, p1, X, None, G1), None, *bwd(1, n)),
+    }
+
+
+def host_ms(fn, calls: int = TIMING_REPS) -> float:
+    """The wrapper's host time: median of perf_counter around calls that do
+    not synchronize (the queue drained before each)."""
+    fn()
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e3
+
+
+def kernels_per_call(fn, calls: int = 5) -> dict:
+    """CUDA kernel names a call of fn launches (torch.profiler), with counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:90]: e.count / calls for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
 def profile_blocked(B, calls: int = 5) -> dict:
@@ -729,6 +833,27 @@ def check_predict_path2(chain, predict):
     return errs
 
 
+def gram_times(dev) -> dict:
+    """Only K2 and K2b at phase 5's shapes (``--gram-times``): the wrapper's
+    host time, CUDA-event time, the profiler's device time and the bound.
+    This script, copied into another checkout's root, times that checkout's
+    kernels the same way."""
+    from gaplac_tpu_torch import parse_formula
+    from gaplac_tpu_torch.kernels.covariance import compile_formula
+
+    rng = np.random.default_rng(9)
+    ck = compile_formula(parse_formula("y ~| SqExp(:x)").formula)
+    f32 = dict(device=dev, dtype=torch.float32)
+    X = torch.as_tensor(rng.uniform(-5, 5, (N_OBS, 1)), **f32)
+    p = torch.as_tensor(rng.uniform(1, 2, (CHAINS, 1)), **f32)
+    G = torch.randn((CHAINS, N_OBS, N_OBS), **f32)
+    Xb = torch.as_tensor(rng.uniform(-5, 5, (N_BIG, 1)), **f32)
+    return {k: {"host_ms": host_ms(kern), "ms": time_ms(kern), "device_ms": device_ms(kern),
+                "bound_ms": bound_ms(flops, nbytes)[0]}
+            for k, (kern, _, _, flops, nbytes)
+            in gram_rows(ck, p, X, G, p[:1].contiguous(), Xb).items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -737,6 +862,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = phase_card_and_build()
+    if "--gram-times" in sys.argv[1:]:
+        print(json.dumps({"card": card, "gram_times": gram_times(dev)}))
+        return 0
     k1_err, k1_fit = phase_k1(dev)
     k2_errs = phase_k2(dev)
     k3_err = phase_k3(dev)
@@ -766,7 +894,11 @@ def main() -> int:
             row["other_clusters"] = {k: v for k, v in times.items()
                                      if k.startswith("K1") and "cluster" in k}
         if key == "K2":
+            row["C1"] = times["K2 C=1"]
             row["path2"] = {"max_abs_err": path2_checks["K2"], **times["K2 n=4096"]}
+            row["cross"] = times["K2 cross"]
+        if key == "K2b":
+            row["C1"] = times["K2b C=1"]
         if key == "K3":
             row["blocked_cholesky_n4096"] = times["blocked"]
         kernels.append(row)

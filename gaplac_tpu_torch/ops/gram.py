@@ -10,13 +10,17 @@ writes out the closed-form leaf derivatives that K2b implements (not
 autograd, so it checks K2b's formulas).  ``GramBound`` wires both into
 autograd.  A CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.
+
+On the card a call's host work is the checks that raise, one dictionary
+lookup for the formula's descriptor (host memory; the launcher passes the
+formula to the kernel by value) and bound C entry points, one output
+allocation and the launch: K2b is one kernel with no scratch.
 """
 
 from __future__ import annotations
 
 import math
-from functools import lru_cache
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -38,8 +42,7 @@ from gaplac_tpu_torch.kernels.covariance import (
 )
 from gaplac_tpu_torch.ops import _build
 
-_MAX_LEAVES, _MAX_TERMS, _MAX_PARAMS, _MAX_TERM_LEAVES = 32, 32, 64, 8
-_TILE = 16  # K2/K2b thread block: 16 x 16 elements
+_MAX_LEAVES, _MAX_TERMS, _MAX_PARAMS = 32, 32, 64  # input columns too: at most _MAX_LEAVES
 
 
 # ---------------------------------------------------------------------------
@@ -141,13 +144,13 @@ def gram_bwd_plain(ck: CompiledKernel, params: torch.Tensor, X1: torch.Tensor,
 
 def descriptor(ck: CompiledKernel) -> np.ndarray:
     """int32 formula table for K2/K2b:
-    kind[L] col[L] extra[L] term_ptr[NT + 1] term_leaf[sum of term lengths]."""
-    L, NT = ck.n_leaves, len(ck.terms)
-    if (L > _MAX_LEAVES or NT > _MAX_TERMS or ck.n_params > _MAX_PARAMS
-            or max(len(t) for t in ck.terms) > _MAX_TERM_LEAVES):
+    kind[L] col[L] extra[L] term_ptr[NT + 1] term_leaf[sum of term lengths];
+    the C launcher checks it and passes it to the kernel by value."""
+    L, NT, d = ck.n_leaves, len(ck.terms), len(ck.varnames)
+    if L > _MAX_LEAVES or NT > _MAX_TERMS or ck.n_params > _MAX_PARAMS or d > _MAX_LEAVES:
         raise ValueError(f"formula too large for the gram kernel ({L} leaves, {NT} terms, "
-                         f"{ck.n_params} params; limits {_MAX_LEAVES}/{_MAX_TERMS}/"
-                         f"{_MAX_PARAMS}, {_MAX_TERM_LEAVES} leaves per term)")
+                         f"{ck.n_params} params, {d} input columns; limits {_MAX_LEAVES}/"
+                         f"{_MAX_TERMS}/{_MAX_PARAMS}/{_MAX_LEAVES})")
     for li, (kind, col) in enumerate(zip(ck.kinds, ck.cols)):
         if col < 0 and kind not in (K_NOISE, K_CONST):
             raise ValueError(f"leaf {li}: only Noise and Constant may lack a column")
@@ -157,40 +160,63 @@ def descriptor(ck: CompiledKernel) -> np.ndarray:
     return np.asarray(list(ck.kinds) + list(ck.cols) + extra + list(ptr) + flat, np.int32)
 
 
-@lru_cache(maxsize=64)
-def _device_descriptor(ck: CompiledKernel, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(descriptor(ck)).to(device)
+class _Launch(NamedTuple):
+    """What a launch of K2 or K2b needs of one formula in one dtype, made
+    once: the descriptor (host memory; the launcher passes the formula to the
+    kernel by value) and the bound C entry points."""
+
+    ck: CompiledKernel
+    desc: np.ndarray
+    head: tuple  # (descriptor pointer, leaves, terms)
+    fwd: object
+    bwd: object
+    d: int
+    n_params: int
 
 
-def _gram_args(ck, params, X1, X2, what):
-    symmetric = X2 is None
-    X2v = X1 if symmetric else X2
-    dtype = _build.require_cuda(what, params, X1, X2v)
-    C, P = params.shape
-    d = len(ck.varnames)
-    if P != ck.n_params or X1.dim() != 2 or X2v.dim() != 2 or X1.shape[1] != d \
-            or X2v.shape[1] != d:
-        raise ValueError(f"{what}: params (C, {ck.n_params}) and X (n, {d}) expected, got "
-                         f"{tuple(params.shape)}, {tuple(X1.shape)}, {tuple(X2v.shape)}")
-    if C > 65535 or max(X1.shape[0], X2v.shape[0]) > 16 * 65535:
-        raise ValueError(f"{what}: batch or size beyond the launch grid")
-    desc = _device_descriptor(ck, params.device)
+_launches: dict = {}
+
+
+def _launch(ck: CompiledKernel, dtype: torch.dtype) -> _Launch:
+    key = (id(ck), dtype)
+    entry = _launches.get(key)
+    if entry is not None:  # the entry holds ck, so no other formula takes its id
+        return entry
+    lib = _build.library()
     sfx = "f32" if dtype == torch.float32 else "f64"
-    head = (desc.data_ptr(), ck.n_leaves, len(ck.terms), X1.data_ptr(), X2v.data_ptr(),
-            X1.shape[0], X2v.shape[0], d, params.data_ptr(), C, P)
-    return sfx, head, symmetric, X2v
+    desc = descriptor(ck)
+    entry = _Launch(ck, desc, (desc.ctypes.data, ck.n_leaves, len(ck.terms)),
+                    getattr(lib, f"gaplac_gram_fwd_{sfx}"), getattr(lib, f"gaplac_gram_bwd_{sfx}"),
+                    len(ck.varnames), ck.n_params)
+    _launches[key] = entry
+    return entry
+
+
+def _gram_args(ck, params, X1, X2v, what, *more):
+    """The launch entry after the checks that raise: one CUDA device, one
+    float dtype, contiguous, params (C, n_params), X (n, d)."""
+    dtype = _build.require_cuda(what, params, X1, X2v, *more)
+    e = _launch(ck, dtype)
+    if (params.dim() != 2 or params.shape[1] != e.n_params or X1.dim() != 2
+            or X2v.dim() != 2 or X1.shape[1] != e.d or X2v.shape[1] != e.d):
+        raise ValueError(f"{what}: params (C, {e.n_params}) and X (n, {e.d}) expected, got "
+                         f"{tuple(params.shape)}, {tuple(X1.shape)}, {tuple(X2v.shape)}")
+    if params.shape[0] > 65535:
+        raise ValueError(f"{what}: a batch of more than 65535 beyond the launch grid")
+    return e
 
 
 def gram_cuda(ck: CompiledKernel, params: torch.Tensor, X1: torch.Tensor,
               X2: Optional[torch.Tensor] = None, diag: float = 0.0) -> torch.Tensor:
     """K2: params (C, n_params) -> (C, n1, n2) on the card."""
-    lib = _build.library()
-    sfx, head, symmetric, X2v = _gram_args(ck, params, X1, X2, "gram (K2)")
-    out = torch.empty((params.shape[0], X1.shape[0], X2v.shape[0]), dtype=params.dtype,
-                      device=params.device)
-    err = getattr(lib, f"gaplac_gram_fwd_{sfx}")(
-        *head, float(diag), int(symmetric), out.data_ptr(), params.device.index or 0,
-        _build.stream_of(params))
+    symmetric = X2 is None
+    X2v = X1 if symmetric else X2
+    e = _gram_args(ck, params, X1, X2v, "gram (K2)")
+    C, n1, n2 = params.shape[0], X1.shape[0], X2v.shape[0]
+    out = torch.empty((C, n1, n2), dtype=params.dtype, device=params.device)
+    err = e.fwd(*e.head, X1.data_ptr(), X2v.data_ptr(), n1, n2, e.d, params.data_ptr(), C,
+                e.n_params, float(diag), int(symmetric), out.data_ptr(), params.device.index,
+                _build.stream_of(params))
     _build.check(err, "gram (K2)")
     _build.counts["K2"] += 1
     return out
@@ -198,23 +224,30 @@ def gram_cuda(ck: CompiledKernel, params: torch.Tensor, X1: torch.Tensor,
 
 def gram_bwd_cuda(ck: CompiledKernel, params: torch.Tensor, X1: torch.Tensor,
                   X2: Optional[torch.Tensor], gK: torch.Tensor) -> torch.Tensor:
-    """K2b: the (C, n_params) gradient of <gK, K(params)> on the card."""
-    lib = _build.library()
-    sfx, head, symmetric, X2v = _gram_args(ck, params, X1, X2, "gram backward (K2b)")
-    _build.require_cuda("gram backward (K2b)", params, gK)
+    """K2b: the (C, n_params) gradient of <gK, K(params)> on the card, one
+    launch; gK need not be symmetric."""
+    symmetric = X2 is None
+    X2v = X1 if symmetric else X2
+    e = _gram_args(ck, params, X1, X2v, "gram backward (K2b)", gK)
     C, n1, n2 = params.shape[0], X1.shape[0], X2v.shape[0]
     if gK.shape != (C, n1, n2):
         raise ValueError(f"gram backward (K2b): gK of shape {tuple(gK.shape)}")
-    blocks = -(-n1 // _TILE) * -(-n2 // _TILE)
-    partial = torch.empty((C, blocks, params.shape[1]), dtype=params.dtype,
-                          device=params.device)  # per-block sums, reduced in a fixed order
     dparams = torch.empty_like(params)
-    err = getattr(lib, f"gaplac_gram_bwd_{sfx}")(
-        *head, int(symmetric), gK.data_ptr(), partial.data_ptr(), dparams.data_ptr(),
-        params.device.index or 0, _build.stream_of(params))
+    err = e.bwd(*e.head, X1.data_ptr(), X2v.data_ptr(), n1, n2, e.d, params.data_ptr(), C,
+                e.n_params, int(symmetric), gK.data_ptr(), dparams.data_ptr(),
+                params.device.index, _build.stream_of(params))
     _build.check(err, "gram backward (K2b)")
     _build.counts["K2b"] += 1
     return dparams
+
+
+def gram_bwd_cluster(C: int, dtype: torch.dtype, device: int = 0) -> int:
+    """The cluster size K2b takes for C chains: 16 where C clusters of 16 fit
+    on the card at once, else 8."""
+    got = _build.library().gaplac_gram_bwd_cluster(C, int(dtype == torch.float64), device)
+    if got < 0:
+        _build.check(-got, "gram backward (K2b) occupancy")
+    return got
 
 
 def gram(ck, params, X1, X2=None, diag=0.0):

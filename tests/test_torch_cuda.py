@@ -19,7 +19,8 @@ from gaplac_tpu_torch.ops import _build
 from gaplac_tpu_torch.ops.cholesky import (blocked_cholesky, chol_batched_cuda,
                                            chol_batched_plain, chol_tile_cuda, chol_tile_plain,
                                            k1_clusters_that_fit)
-from gaplac_tpu_torch.ops.gram import gram_bwd_cuda, gram_bwd_plain, gram_cuda, gram_plain
+from gaplac_tpu_torch.ops.gram import (gram_bwd_cluster, gram_bwd_cuda, gram_bwd_plain, gram_cuda,
+                                       gram_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -135,6 +136,85 @@ def test_k2b_repeats_bit_for_bit(dev):
     G = torch.randn((8, 500, 500), generator=gen, device=dev)
     a, b = gram_bwd_cuda(ck, p, X, None, G), gram_bwd_cuda(ck, p, X, None, G)
     assert torch.equal(a, b)
+
+
+COMPOSITE = "y ~| SqExp(:t) * Cat(:g) + Linear(:x) + OU(:t2) + Noise"
+EXTENDED = ("y ~| Matern32(:t) + Matern52(:t2) * Periodic(:s; l=1.2, p=2.5)"
+            " + RQ(:x; l=0.8, alpha=1.5)")
+#: the cross gram's column count beside each row count: n2 % 4 == 0 takes
+#: the kernels' 16-byte path, any other n2 the scalar one
+CROSS_N2 = {1: 3, 63: 64, 64: 70, 65: 128, 500: 129}
+
+
+def _gram_inputs(ck, C, n1, n2, dev, seed):
+    """float64 X1 (n1, 4) with a categorical column, X2 (n2, 4) or None, params
+    (C, n_params) about the defaults, and a cotangent (C, n1, n2 or n1) that
+    is not symmetric."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n1 + (n2 or 0), 4))
+    X[:, 1] = np.floor(np.abs(X[:, 1]) * 2)
+    X = torch.as_tensor(X, device=dev)
+    X1, X2 = X[:n1].contiguous(), None if n2 is None else X[n1:].contiguous()
+    p = ck.default_params(torch.float64, dev).expand(C, -1) * torch.as_tensor(
+        rng.uniform(0.7, 1.4, (C, ck.n_params)), device=dev)
+    G = torch.as_tensor(rng.normal(size=(C, n1, n2 or n1)), device=dev)
+    return X1, X2, p.contiguous(), G
+
+
+def _check_kernel(got, plain, args64, dtype):
+    """got (the kernel in dtype) against plain(*args64) in float64, with the
+    float32 rule or F64_RTOL."""
+    ref = plain(*args64)
+    if dtype == torch.float64:
+        assert _rel(got, ref) < F64_RTOL
+    else:
+        f32 = [a.float() if isinstance(a, torch.Tensor) else a for a in args64]
+        tol = max(F32_FACTOR * _rel(plain(*f32).double(), ref), F32_FLOOR)
+        assert _rel(got.double(), ref) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("C", [1, 8])
+@pytest.mark.parametrize("n", sorted(CROSS_N2))
+def test_k2_and_k2b_edge_shapes(dev, n, C, symmetric, dtype):
+    """Tiles of 32 cut at n = 1, 63, 64, 65 and 500, with a cotangent that is
+    not symmetric for a symmetric gram (K2b folds gK_ij + gK_ji)."""
+    ck = compile_formula(parse_formula(COMPOSITE).formula)
+    X1, X2, p, G = _gram_inputs(ck, C, n, None if symmetric else CROSS_N2[n], dev, n + C)
+    c = lambda t: None if t is None else t.to(dtype)
+    _check_kernel(gram_cuda(ck, c(p), c(X1), c(X2), 0.1),
+                  lambda *a: gram_plain(ck, *a, 0.1), (p, X1, X2), dtype)
+    _check_kernel(gram_bwd_cuda(ck, c(p), c(X1), c(X2), c(G)),
+                  lambda *a: gram_bwd_plain(ck, *a), (p, X1, X2, G), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("formula", [COMPOSITE, EXTENDED])
+def test_k2_symmetric_output_is_symmetric_bit_for_bit(dev, formula, dtype):
+    ck = compile_formula(parse_formula(formula).formula)
+    X1, _, p, _ = _gram_inputs(ck, 8, 500, None, dev, 1)
+    K = gram_cuda(ck, p.to(dtype), X1.to(dtype), None, 0.1)
+    assert torch.equal(K, K.mT)
+
+
+def test_k2b_repeats_bit_for_bit_one_chain(dev):
+    """At NUTS's (1, 500, 500), where the launcher takes clusters of 16."""
+    ck = compile_formula(parse_formula("y ~| SqExp(:x)").formula)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    X = torch.rand((500, 1), generator=gen, device=dev) * 10 - 5
+    p = 1 + torch.rand((1, 1), generator=gen, device=dev)
+    G = torch.randn((1, 500, 500), generator=gen, device=dev)
+    first = gram_bwd_cuda(ck, p, X, None, G)
+    for _ in range(19):
+        assert torch.equal(gram_bwd_cuda(ck, p, X, None, G), first)
+
+
+def test_k2b_cluster_size(dev):
+    for dtype in (torch.float32, torch.float64):
+        assert gram_bwd_cluster(1, dtype) == 16
+        assert gram_bwd_cluster(8, dtype) in (8, 16)
+        assert gram_bwd_cluster(10 ** 4, dtype) == 8
 
 
 @pytest.mark.parametrize("n", [1, 37, 127, 128])

@@ -2,6 +2,8 @@
 closed-form backward (kernel K2b's plain version) with gaplac_tpu, on the
 CPU in float64.  The same numpy inputs go to both packages."""
 
+from functools import lru_cache
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +36,20 @@ def _params(ck, seed, C=3):
     rng = np.random.default_rng(seed)
     base = np.asarray(ck.default_params(torch.float64))
     return base[None] * rng.uniform(0.6, 1.5, size=(C, base.size))
+
+
+@lru_cache(maxsize=None)
+def _jitted_param_grad(formula):
+    jck = jax_compile(parse_formula(formula).formula)
+    inner = lambda p, g, X1, X2: jnp.sum(g * jck.gram(p, X1, X2))
+    return jax.jit(jax.vmap(jax.grad(inner), in_axes=(0, 0, None, None)))
+
+
+def _jax_param_grad(formula, P, gK, X1, X2=None):
+    """jax.grad of <gK[c], K(P[c])> through gaplac_tpu's gram, for each c (one
+    compile a formula and shape)."""
+    return np.asarray(_jitted_param_grad(formula)(
+        jnp.asarray(P), jnp.asarray(gK), jnp.asarray(X1), None if X2 is None else jnp.asarray(X2)))
 
 
 def _cks(formula):
@@ -126,12 +142,7 @@ def test_closed_form_backward_matches_jax_grad(formula, symmetric):
     P = _params(tck, 9)
     rng = np.random.default_rng(10)
     gK = rng.normal(size=(P.shape[0], 37, 37 if symmetric else 29))
-
-    def inner(p, g):
-        K = jck.gram(p, jnp.asarray(X1), None if X2 is None else jnp.asarray(X2))
-        return jnp.sum(g * K)
-
-    ref = np.asarray(jax.jit(jax.vmap(jax.grad(inner)))(jnp.asarray(P), jnp.asarray(gK)))
+    ref = _jax_param_grad(formula, P, gK, X1, X2)
     got = gram_bwd_plain(tck, torch.as_tensor(P), torch.as_tensor(X1),
                          None if X2 is None else torch.as_tensor(X2),
                          torch.as_tensor(gK)).numpy()
@@ -143,6 +154,25 @@ def test_closed_form_backward_matches_jax_grad(formula, symmetric):
     (g,) = torch.autograd.grad((K * torch.as_tensor(gK)).sum(), Pt)
     np.testing.assert_allclose(g.numpy(), ref, rtol=GRAD_RTOL,
                                atol=GRAD_RTOL * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("formula", FORMULAS)
+def test_symmetric_backward_sees_only_the_symmetric_part_of_the_cotangent(formula):
+    """For a symmetric gram, <G, dK> equals <(G + G^T)/2, dK> for any G, since
+    every leaf's dK/dtheta is symmetric: the identity by which K2b sums over
+    the lower triangle with the weight G_ij + G_ji.  Both equal jax.grad of
+    <G, K(params)> through gaplac_tpu's gram."""
+    jck, tck = _cks(formula)
+    X = _data(37, 11, len(jck.varnames))  # the shapes of the test above: no new compile
+    P = _params(tck, 12)
+    P[1] = P[0]
+    G = np.random.default_rng(13).normal(size=(37, 37))  # not symmetric
+    Gs = np.stack([G, 0.5 * (G + G.T), G])
+    got = gram_bwd_plain(tck, torch.as_tensor(P), torch.as_tensor(X), None,
+                         torch.as_tensor(Gs)).numpy()
+    np.testing.assert_allclose(got[1], got[0], rtol=1e-12, atol=1e-12 * np.abs(got[0]).max())
+    ref = _jax_param_grad(formula, P, Gs, X)
+    np.testing.assert_allclose(got, ref, rtol=GRAD_RTOL, atol=GRAD_RTOL * np.abs(ref).max())
 
 
 def test_descriptor_layout():
