@@ -22,7 +22,15 @@ kernels' launch counts set to 0 just before each and read just after:
    whose factorizations take the blocked route through kernel K3 (and K2).
    K2 is then held against its plain version at this path's shapes, and
    ``select`` and ``predict`` (on the chain's first draws) against the same
-   commands on the CPU in float64.
+   commands on the CPU in float64;
+3. the rest of the dense model: ``mcmc --sampler hmc`` whole and with
+   ``--segments 10`` (identical tables), ``--sampler advi``, ``--approx
+   laplace`` on a Bernoulli set of n = 500 (its log density and gradient
+   against the CPU, 16 K1 launches an evaluation), ``select --estimator smc``
+   at 512 particles (its evidence against a float64 quadrature; K1 and K2 at
+   the particle batch, checked and timed there), and ``fitplot``'s component
+   posteriors at n = 4096 against the CPU, with the blocked triangular solve
+   timed against ``torch.linalg.solve_triangular`` at the shape it solves.
 
 Every phase raises on failure; the script exits non-zero on any failure and
 when no CUDA device is available.  Its last line is one JSON object
@@ -44,6 +52,7 @@ import io
 import itertools
 import json
 import logging
+import math
 import subprocess
 import sys
 import time
@@ -138,20 +147,31 @@ def time_ms(fn) -> float:
     return float(np.median(times))
 
 
+def profiled(fn, calls: int):
+    """torch.profiler's key averages over ``calls`` calls of ``fn``, taken in
+    the profiler's second window: the first, of as many calls, is traced and
+    dropped, since the profiler's first window can miss a kernel."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    got = []
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: got.append(p.key_averages())) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return got[-1]
+
+
 def device_ms(fn, calls: int = TIMING_REPS) -> float:
     """Device time per call of the kernels ``fn`` launches: torch.profiler's
     sum of CUDA kernel (and copy) time over ``calls`` calls after a warmup.
     Unlike time_ms, it leaves out the host's time to reach the launch, which
     is most of a call for a kernel of a few microseconds."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
+    return sum(e.self_device_time_total for e in profiled(fn, calls)
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / calls
 
 
@@ -468,26 +488,12 @@ def phase_timings(dev):
         "blocked": (lambda: blocked_cholesky(B, base=K3_TILE), blocked_plain,
                     lambda: torch.linalg.cholesky(B), N_BIG ** 3 / 3, chol_bytes(1, N_BIG)),
     })
-    times = {}
-    for k, (kern, plain, lib, flops, nbytes) in rows.items():
-        if k.startswith("K2"):  # the wrapper's host time, before the rest
-            times[k] = {"host_ms": host_ms(kern)}
-        # plain, kernel, kernel, plain (and library, library): in turns, in one call
-        tp1, tk1, tk2, tp2 = time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)
-        tl = float(np.median([time_ms(lib), time_ms(lib)])) if lib is not None else None
-        dk = device_ms(kern)
-        dl = device_ms(lib) if lib is not None else None
-        b, by = bound_ms(flops, nbytes)
-        times.setdefault(k, {}).update({
-            "ms": float(np.median([tk1, tk2])), "plain_ms": float(np.median([tp1, tp2])),
-            "library_ms": tl, "bound_ms": b, "bound_by": by, "device_ms": dk,
-            "library_device_ms": dl})
-        host = times[k].get("host_ms")
-        log(f"  {k}: kernel {tk1:.4f} / {tk2:.4f} ms, plain {tp1:.4f} / {tp2:.4f} ms, "
-            f"library {'none' if tl is None else f'{tl:.4f} ms'}, bound {b:.4g} ms ({by}); "
-            f"device time: kernel {dk:.4f} ms, library "
-            f"{'none' if dl is None else f'{dl:.4f} ms'}"
-            + ("" if host is None else f"; wrapper host time {host:.4f} ms"))
+    # the K2 wrappers' host time, before the rest
+    times = {k: {"host_ms": host_ms(row[0])} for k, row in rows.items() if k.startswith("K2")}
+    for k, v in times.items():
+        log(f"  {k}: wrapper host time {v['host_ms']:.4f} ms")
+    for k, v in time_rows(rows).items():
+        times.setdefault(k, {}).update(v)
     times["blocked"]["profile"] = profile_blocked(B)
     for k in ("K2b", "K2b C=1"):  # one kernel a call, and nothing else
         names = kernels_per_call(rows[k][0])
@@ -543,15 +549,7 @@ def host_ms(fn, calls: int = TIMING_REPS) -> float:
 
 def kernels_per_call(fn, calls: int = 5) -> dict:
     """CUDA kernel names a call of fn launches (torch.profiler), with counts."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key[:90]: e.count / calls for e in prof.key_averages()
+    return {e.key[:90]: e.count / calls for e in profiled(fn, calls)
             if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
@@ -559,8 +557,6 @@ def profile_blocked(B, calls: int = 5) -> dict:
     """Where the time of blocked_cholesky at n = 4096 goes: host wall per call
     (synchronized, without the profiler) against the device time of its
     kernels (torch.profiler, over as many calls)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from gaplac_tpu_torch.ops.cholesky import blocked_cholesky
 
     blocked_cholesky(B, base=K3_TILE)
@@ -570,12 +566,8 @@ def profile_blocked(B, calls: int = 5) -> dict:
         blocked_cholesky(B, base=K3_TILE)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / calls * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            blocked_cholesky(B, base=K3_TILE)
-        torch.cuda.synchronize()
     kernels = {}
-    for e in prof.key_averages():
+    for e in profiled(lambda: blocked_cholesky(B, base=K3_TILE), calls):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             kernels[e.key] = (e.self_device_time_total / 1e3 / calls, e.count // calls)
     device = sum(ms for ms, _ in kernels.values())
@@ -833,6 +825,445 @@ def check_predict_path2(chain, predict):
     return errs
 
 
+# ---------------------------------------------------------------------------
+# path 3: the rest of the dense model
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def batch_recorder():
+    """The batch of every K1 and K2 launch inside the block: {kernel: [B, ...]}."""
+    from gaplac_tpu_torch.ops import cholesky as C
+    from gaplac_tpu_torch.ops import gram as G
+
+    seen = {"K1": [], "K2": []}
+    k1, k2 = C.chol_batched_cuda, G.gram_cuda
+
+    def rec_k1(A, *a, **kw):
+        seen["K1"].append(A.shape[0])
+        return k1(A, *a, **kw)
+
+    def rec_k2(ck, params, *a, **kw):
+        seen["K2"].append(params.shape[0])
+        return k2(ck, params, *a, **kw)
+
+    C.chol_batched_cuda, G.gram_cuda = rec_k1, rec_k2
+    try:
+        yield seen
+    finally:
+        C.chol_batched_cuda, G.gram_cuda = k1, k2
+
+
+def require_launches(tag: str, launches: dict, kernels) -> None:
+    for k in kernels:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on {tag}")
+
+
+def phase_hmc_advi(data):
+    """Path 3a: mcmc --sampler hmc, whole and in segments (identical
+    tables), and --sampler advi, on path 1's n = 500 data."""
+    from gaplac_tpu_torch.inference import chees
+    from gaplac_tpu_torch.ops import _build
+
+    log(f"[8] path 3: mcmc --sampler hmc (whole, then --segments 10) and --sampler advi, "
+        f"n = {N_OBS}, on the card")
+    capture = _Capture()
+    logging.getLogger().addHandler(capture)
+    head = ["iteration", "chain", "ℓ"] + [f"fx[{i + 1}]" for i in range(N_OBS)] + ["lp"]
+    base = ["-v", "--platform", "cuda", "mcmc", "y ~| SqExp(:x)", "--data", str(data),
+            "--infer", "x", "--seed", "1", "--chains", str(CHAINS)]
+    hmc = ["--sampler", "hmc", "--leapfrogs", "32", "--samples", "30", "--warmup", "30"]
+    out, launches = {}, {}
+    # every checkpoint-callback state, and each run's last draws: the
+    # segmented run must call the callback once a sampling segment
+    ckpts, last_draws = [], []
+    run_hmc = chees.run_hmc
+
+    def recording_run_hmc(*args, checkpoint_cb=None, **kwargs):
+        def cb(state):
+            ckpts.append(state)
+            checkpoint_cb(state)
+
+        res = run_hmc(*args, checkpoint_cb=cb if checkpoint_cb else None, **kwargs)
+        last_draws.append(res.positions[:, -1].cpu().numpy())
+        return res
+
+    chees.run_hmc = recording_run_hmc
+    try:
+        _build.reset_counts()
+        for name, extra in (("hmc", []),
+                            ("hmc segmented", ["--segments", "10", "--checkpoint",
+                                               str(OUT_DIR / "hmc_segments_ckpt")])):
+            path = OUT_DIR / f"{name.replace(' ', '_')}.tsv"
+            t0 = time.perf_counter()
+            run_cli([*base, *hmc, *extra, "--output", str(path)], capture)
+            wall = time.perf_counter() - t0
+            df = read_table(path, head + ["acceptance_rate", "step_size"], 30 * CHAINS)
+            rate_line = next(s for s in capture.lines if "transitions/s" in s)
+            out[name] = {"path": path, "wall_s": wall, "ell_mean": float(df["ℓ"].mean()),
+                         "transitions_per_s": float(rate_line.split("transitions/s")[0]
+                                                    .split("(")[-1])}
+            log(f"  {name}: {rate_line}; command wall {wall:.1f} s; posterior mean ℓ "
+                f"{out[name]['ell_mean']:.3f}")
+        torch.cuda.synchronize()
+        launches["hmc"] = dict(_build.counts)
+        same = out["hmc"]["path"].read_bytes() == out["hmc segmented"]["path"].read_bytes()
+        log(f"  kernel launches, both hmc runs: {launches['hmc']}; the segmented run wrote the "
+            f"whole run's table byte for byte: {same}")
+        if not same:
+            raise AssertionError("mcmc --sampler hmc --segments 10 wrote another table than the "
+                                 "whole run")
+        log(f"  checkpoint callbacks in the segmented run: {len(ckpts)} (3 sampling segments)")
+        if len(ckpts) != 3:
+            raise AssertionError(f"the segmented run called its checkpoint callback "
+                                 f"{len(ckpts)} times, not once for each of 3 sampling segments")
+        if not np.array_equal(ckpts[-1]["positions"], last_draws[-1]):
+            raise AssertionError("the last checkpoint's positions are not the segmented run's "
+                                 "last draws")
+
+        _build.reset_counts()
+        path = OUT_DIR / "advi.tsv"
+        t0 = time.perf_counter()
+        stdout = run_cli([*base, "--sampler", "advi", "--samples", "30", "--output", str(path)],
+                         capture)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches["advi"] = dict(_build.counts)
+        elbo = float(stdout.split("final ELBO")[1].split()[0])
+        df = read_table(path, head, 30 * CHAINS)
+        out["advi"] = {"wall_s": wall, "elbo": elbo, "ell_mean": float(df["ℓ"].mean()),
+                       "fit_line": next(s for s in capture.lines if s.startswith("ADVI:"))}
+        log(f"  advi: {out['advi']['fit_line']}; command wall {wall:.1f} s; final ELBO "
+            f"{elbo:.3f}; mean ℓ of the draws {out['advi']['ell_mean']:.3f}; kernel launches "
+            f"{launches['advi']}")
+    finally:
+        chees.run_hmc = run_hmc
+        logging.getLogger().removeHandler(capture)
+    if not math.isfinite(elbo):
+        raise AssertionError(f"ADVI's final ELBO is {elbo}")
+    for name in ("hmc", "hmc segmented", "advi"):
+        ell = out[name]["ell_mean"]
+        if not abs(ell - 1.5) <= 0.6:
+            raise AssertionError(f"{name}: mean ℓ {ell:.3f} outside 1.5 ± 0.6")
+    for tag in ("hmc", "advi"):
+        require_launches(f"path 3 ({tag})", launches[tag], ("K1", "K2", "K2b"))
+    for v in out.values():
+        v.pop("path", None)
+    return launches, out
+
+
+def bernoulli_data(n: int):
+    """tests/test_laplace.py's Bernoulli set (rows drawn as there), n rows."""
+    rng = np.random.default_rng(3)
+    x = np.sort(rng.uniform(-3, 3, n))
+    f = np.sin(1.5 * x) * 2
+    return x, (rng.uniform(size=n) < 1 / (1 + np.exp(-f))).astype(int)
+
+
+def phase_laplace(dev):
+    """Path 3b: mcmc --approx laplace with 8-chain ChEES on a Bernoulli set
+    of n = 500; the Laplace marginal's log density and gradient on the card
+    against the CPU; 16 K1 launches an evaluation at C = 8."""
+    import pandas as pd
+
+    from gaplac_tpu_torch import parse_formula
+    from gaplac_tpu_torch.inference.hmc import value_and_grad
+    from gaplac_tpu_torch.inference.laplace import build_laplace_marginal
+    from gaplac_tpu_torch.inference.model import slot_groups_for
+    from gaplac_tpu_torch.kernels.covariance import compile_formula
+    from gaplac_tpu_torch.ops import _build
+
+    log(f"[9] path 3: mcmc --approx laplace, Bernoulli, n = {N_OBS}, 8-chain ChEES, on the card")
+    x, yb = bernoulli_data(N_OBS)
+    data = OUT_DIR / "bernoulli.tsv"
+    pd.DataFrame({"x": x, "y": yb}).to_csv(data, sep="\t", index=False)
+    formula = "y : Bernoulli ~| SqExp(:x)"
+    path = OUT_DIR / "laplace.tsv"
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    run_cli(["--platform", "cuda", "mcmc", formula, "--data", str(data), "--infer", "x",
+             "--approx", "laplace", "--sampler", "chees", "--chains", str(CHAINS), "--samples",
+             "20", "--warmup", "20", "--seed", "1", "--output", str(path)])
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(_build.counts)
+    read_table(path, ["iteration", "chain", "ℓ"] + [f"fx[{i + 1}]" for i in range(N_OBS)]
+               + ["lp", "acceptance_rate", "step_size", "traj_length"], 20 * CHAINS)
+    log(f"  command wall {wall:.1f} s; kernel launches {launches}; the table is finite")
+    require_launches("path 3 (laplace)", launches, ("K1", "K2", "K2b"))
+
+    spec = parse_formula(formula)
+    ck = compile_formula(spec.formula)
+
+    def model(d, dtype):
+        X = torch.as_tensor(x[:, None], dtype=dtype, device=d)
+        return build_laplace_marginal(ck, slot_groups_for(ck, ["x"]), X,
+                                      torch.as_tensor(yb, dtype=dtype, device=d),
+                                      spec.likelihood)
+
+    u = torch.tensor([[-1.2], [-0.9], [-0.4]], dtype=torch.float64)  # ℓ 4.63, 5.77, 8.04
+    runs = {}
+    for tag, d, dtype in (("card", dev, torch.float32), ("cpu64", "cpu", torch.float64),
+                          ("cpu32", "cpu", torch.float32), ("card_plain", dev, torch.float32)):
+        with plain_kernels() if tag == "card_plain" else contextlib.nullcontext():
+            lp, g = value_and_grad(model(d, dtype).logdensity)(u.to(device=d, dtype=dtype))
+        runs[tag] = (lp.cpu(), g.cpu())
+    errs = {}
+    for i, what in enumerate(("log density", "gradient")):
+        errs[what] = check_accuracy(
+            f"Laplace {what} at three theta, card f32 against cpu f64", runs["card"][i],
+            (runs["cpu32"][i], runs["card_plain"][i]), runs["cpu64"][i])
+
+    m = model(dev, torch.float32)
+    vag = value_and_grad(m.logdensity)
+    u8 = torch.linspace(-1.5, 0.0, CHAINS, device=dev)[:, None]
+    vag(u8)
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    vag(u8)
+    torch.cuda.synchronize()
+    per_eval = dict(_build.counts)
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        vag(u8)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    eval_ms = float(np.median(walls)) * 1e3
+    kernels = {e.key[:90]: (e.self_device_time_total / 1e3 / 3, e.count // 3)
+               for e in profiled(lambda: vag(u8), 3)
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    device = sum(ms for ms, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:5]
+    log(f"  one value+grad at C = {CHAINS}: kernel launches {per_eval} (K1 must be 16); wall "
+        f"{eval_ms:.2f} ms (median of 5); device kernels {device:.2f} ms "
+        f"({sum(c for _, c in kernels.values())} CUDA kernels), busy {device / eval_ms:.2f}")
+    for name, (ms, count) in top:
+        log(f"    {ms:.3f} ms in {count} x {name}")
+    if per_eval["K1"] != 16:
+        raise AssertionError(f"Laplace: {per_eval['K1']} K1 launches an evaluation, not 16")
+    return launches, {"wall_s": wall, "eval_ms": eval_ms, "eval_device_ms": device,
+                      "launches_per_eval": per_eval, "rel_err": errs,
+                      "top": [[name, ms, count] for name, (ms, count) in top]}
+
+
+def phase_smc(dev, data):
+    """Path 3c: select --estimator smc at 512 particles on path 1's data,
+    its SqExp evidence against a float64 quadrature, and K1 and K2 timed at
+    the particle batch."""
+    import pandas as pd
+    from scipy.special import logsumexp
+
+    from gaplac_tpu_torch import parse_formula
+    from gaplac_tpu_torch.inference.model import build_model
+    from gaplac_tpu_torch.inference.smc import smc_log_evidence_gp
+    from gaplac_tpu_torch.kernels.covariance import compile_formula
+    from gaplac_tpu_torch.ops import _build
+
+    particles = 512
+    log(f"[10] path 3: select --estimator smc --particles {particles}, n = {N_OBS}, on the card")
+    capture = _Capture()
+    logging.getLogger().addHandler(capture)
+    try:
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        with batch_recorder() as seen:
+            report = run_cli(["-v", "--platform", "cuda", "select", "--estimator", "smc",
+                              "--formulae", "y ~| SqExp(:x)", "y ~| OU(:x)", "--data",
+                              str(data), "--particles", str(particles)], capture)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = dict(_build.counts)
+        lines = list(capture.lines)
+    finally:
+        logging.getLogger().removeHandler(capture)
+    lps = select_lps(report)
+    bayes = float(report.split("**Log2 Bayes**:")[1].splitlines()[0])
+    stages = [s for s in lines if s.startswith("SMC evidence for")]
+    log(f"  command wall {wall:.1f} s; Log2 Bayes {bayes}; {stages}; kernel launches "
+        f"{launches}; batches seen: K1 {sorted(set(seen['K1']))}, K2 {sorted(set(seen['K2']))}")
+    if any("stopped at inverse temperature" in s for s in lines) or len(stages) != 2:
+        raise AssertionError("an SMC run did not reach beta = 1")
+    if not bayes > 0:
+        raise AssertionError(f"SMC Log2 Bayes {bayes} is not > 0")
+    for k in ("K1", "K2"):
+        if particles not in seen[k]:
+            raise AssertionError(f"{k} never ran at the particle batch {particles}")
+    at_batch = {k: seen[k].count(particles) for k in ("K1", "K2")}
+
+    df = pd.read_csv(data, sep="\t")
+    x, y = df["x"].to_numpy(), df["y"].to_numpy()
+    spec = parse_formula("y ~| SqExp(:x)")
+    ck = compile_formula(spec.formula)
+    yd = torch.tensor(y, dtype=torch.float32, device=dev)
+    model = build_model(ck, ["x"], torch.tensor(x[:, None], dtype=torch.float32, device=dev),
+                        yd, spec.likelihood)
+    seeded = []
+    for seed in range(1, 6):
+        res = smc_log_evidence_gp(torch.Generator(device=dev).manual_seed(seed), model, yd,
+                                  n_particles=particles)
+        if res.final_beta != 1.0:
+            raise AssertionError(f"SMC seed {seed} ended at beta {res.final_beta}")
+        seeded.append(res.log_evidence)
+    sd = float(np.std(seeded, ddof=1))
+    # quadrature over a 400-point grid of l on Uniform(0, 20), float64 on the card
+    ls = torch.linspace(1e-3, 20 - 1e-3, 400, dtype=torch.float64, device=dev)
+    xd = torch.as_tensor(x, device=dev)
+    d2 = (xd[:, None] - xd[None, :]) ** 2
+    S = torch.exp(-d2 / (2 * ls[:, None, None] ** 2)) + 1.1 * torch.eye(N_OBS, device=dev,
+                                                                          dtype=torch.float64)
+    L = torch.linalg.cholesky(S)
+    a = torch.linalg.solve_triangular(L, torch.tensor(y, device=dev).expand(400, -1)[..., None],
+                                      upper=False)[..., 0]
+    quad_lps = (-0.5 * (a * a).sum(-1) - torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+                - 0.5 * N_OBS * math.log(2 * math.pi)).cpu().numpy()
+    quad = float(logsumexp(quad_lps) + math.log(float(ls[1] - ls[0])) - math.log(20.0))
+    del S, L
+    tol = max(0.5, 3 * sd)
+    log(f"  SqExp evidence {lps[0]:.4f} (CLI, seed 0) against the float64 quadrature {quad:.4f}: "
+        f"off by {abs(lps[0] - quad):.4f} (tolerance {tol:.4f} = max(0.5, 3 x sd {sd:.4f} of "
+        f"seeds 1-5: {', '.join(f'{v:.4f}' for v in seeded)}))")
+    if not abs(lps[0] - quad) <= tol:
+        raise AssertionError("SMC SqExp evidence is off the quadrature")
+    return launches, {"wall_s": wall, "log2_bayes": bayes, "lps": lps, "quadrature": quad,
+                      "seeded": seeded, "sd": sd, "launches_at_512": at_batch,
+                      "stages": stages}
+
+
+def batch_rows(dev) -> tuple:
+    """K1 and K2 at SMC's particle batch, (512, 500, 500) float32: their
+    error against the plain versions and phase 5's timing rows."""
+    from gaplac_tpu_torch import parse_formula
+    from gaplac_tpu_torch.kernels.covariance import compile_formula
+    from gaplac_tpu_torch.ops.cholesky import chol_batched_cuda, chol_batched_plain
+    from gaplac_tpu_torch.ops.gram import gram_cuda, gram_plain
+
+    B = 512
+    log(f"[10b] K1 and K2 at ({B}, {N_OBS}, {N_OBS}) float32 against their plain versions")
+    rng = np.random.default_rng(12)
+    x = rng.uniform(-5, 5, N_OBS)
+    ls = rng.uniform(0.3, 12.0, B)
+    ck = compile_formula(parse_formula("y ~| SqExp(:x)").formula)
+    X = torch.as_tensor(x[:, None], device=dev)
+    p = torch.as_tensor(ls[:, None], device=dev)
+    K64 = gram_plain(ck, p, X, None, 1.1)
+    errs = {}
+    Kk = gram_cuda(ck, p.float(), X.float(), None, 1.1)
+    Kp = gram_plain(ck, p.float(), X.float(), None, 1.1)
+    check_accuracy(f"K2 ({B},{N_OBS},{N_OBS}) float32", Kk, Kp, K64)
+    errs["K2"] = float((Kk - Kp).abs().max())
+    L64 = chol_batched_plain(K64)
+    A = K64.float()
+    Lk, Lp = chol_batched_cuda(A), chol_batched_plain(A)
+    check_accuracy(f"K1 ({B},{N_OBS},{N_OBS}) float32", Lk, Lp, L64)
+    errs["K1"] = float((Lk - Lp).abs().max())
+    del K64, L64, Kk, Kp, Lk, Lp
+    n = N_OBS
+    pf, Xf = p.float(), X.float()
+    rows = {
+        "K1 B=512": (lambda: chol_batched_cuda(A), lambda: chol_batched_plain(A),
+                     lambda: torch.linalg.cholesky_ex(A), B * n ** 3 / 3,
+                     B * (n * (n + 1) // 2 + n * n) * 4),
+        "K2 B=512": (lambda: gram_cuda(ck, pf, Xf, None, 1.1),
+                     lambda: gram_plain(ck, pf, Xf, None, 1.1), None, 6 * B * n * n,
+                     B * n * n * 4 + 4 * (n + B)),
+    }
+    return errs, time_rows(rows)
+
+
+def time_rows(rows: dict) -> dict:
+    """Each (kernel, plain version, library call or None, flops, bytes) row
+    timed: CUDA events in turns (plain, kernel, kernel, plain, then the
+    library twice), the profiler's device time, and the bound with its
+    share of the device time."""
+    times = {}
+    for k, (kern, plain, lib, flops, nbytes) in rows.items():
+        tp1, tk1, tk2, tp2 = time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)
+        tl = float(np.median([time_ms(lib), time_ms(lib)])) if lib is not None else None
+        dk = device_ms(kern)
+        dl = device_ms(lib) if lib is not None else None
+        b, by = bound_ms(flops, nbytes)
+        times[k] = {"ms": float(np.median([tk1, tk2])), "plain_ms": float(np.median([tp1, tp2])),
+                    "library_ms": tl, "bound_ms": b, "bound_by": by, "device_ms": dk,
+                    "library_device_ms": dl, "share": b / dk}
+        log(f"  {k}: kernel {tk1:.4f} / {tk2:.4f} ms, plain {tp1:.4f} / {tp2:.4f} ms, library "
+            f"{'none' if tl is None else f'{tl:.4f} ms'}, bound {b:.4g} ms ({by}); device "
+            f"time: kernel {dk:.4f} ms (share {b / dk:.3f}), library "
+            f"{'none' if dl is None else f'{dl:.4f} ms'}")
+    return times
+
+
+def phase_fitplot(dev, data):
+    """Path 3d: fitplot's component posteriors (``component_posteriors``, the
+    numbers of the command without its drawing) at n = 4096 on path 2's
+    data, card (kernels, float32) against the CPU (float64); the blocked
+    solve against torch.linalg.solve_triangular at the shape fitplot
+    solves."""
+    from gaplac_tpu_torch import parse_formula
+    from gaplac_tpu_torch.cli.common import design_matrix, response_vector
+    from gaplac_tpu_torch.cli.fitplot_cmd import component_posteriors
+    from gaplac_tpu_torch.kernels.covariance import compile_formula
+    from gaplac_tpu_torch.ops import _build
+    from gaplac_tpu_torch.ops.cholesky import blocked_solve_lower
+
+    log(f"[11] path 3: fitplot's component posteriors, n = {N_BIG}: card f32 against cpu f64")
+    formula = "y ~| SqExp(:x; l=1.5) + OU(:x; l=3)"
+    df = read_table(data, ["x", "y"], N_BIG)
+    spec = parse_formula(formula)
+    ck = compile_formula(spec.formula)
+    runs, launches = {}, None
+    for tag, d, dtype in (("card", dev, torch.float32), ("cpu64", "cpu", torch.float64),
+                          ("cpu32", "cpu", torch.float32), ("card_plain", dev, torch.float32)):
+        X = torch.tensor(design_matrix(df, ck), dtype=dtype, device=d)
+        y = torch.tensor(response_vector(df, spec), dtype=dtype, device=d)
+        if tag == "card":
+            _build.reset_counts()
+            t0 = time.perf_counter()
+        with plain_kernels() if tag == "card_plain" else contextlib.nullcontext():
+            runs[tag] = component_posteriors(ck, ck.default_params(dtype, d), X, y, 1.1,
+                                             range(len(ck.terms)))
+        if tag == "card":
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(_build.counts)
+    log(f"  card: {wall:.2f} s, kernel launches {launches}")
+    require_launches("path 3 (fitplot)", launches, ("K2", "K3"))
+    errs = {}
+    for i, (t, mu, sd) in enumerate(runs["card"]):
+        for j, what in ((1, "mean"), (2, "sd")):
+            col = lambda tag, dt: torch.as_tensor(runs[tag][i][j], dtype=dt)
+            errs[f"term {t} {what}"] = check_accuracy(
+                f"fitplot component {t} {what}", col("card", torch.float32),
+                (col("cpu32", torch.float32), col("card_plain", torch.float32)),
+                col("cpu64", torch.float64))
+
+    # the card machine has no matplotlib: fitplot's drawing is tested on the CPU
+    # (tests/test_torch_fitplot.py), and its numbers here
+    log(f"[11b] blocked_solve_lower against torch.linalg.solve_triangular at "
+        f"({N_BIG}, {N_BIG} x {N_BIG}) float32")
+    X64 = torch.tensor(design_matrix(df, ck), device=dev)
+    p64 = ck.default_params(torch.float64, dev)
+    L64 = torch.linalg.cholesky(ck.gram(p64, X64, diag=1.1))
+    from gaplac_tpu_torch.cli.fitplot_cmd import term_gram
+
+    B64 = term_gram(ck, 0, p64, X64)
+    ref = torch.linalg.solve_triangular(L64, B64, upper=False)
+    L32, B32 = L64.float(), B64.float()
+    solve_err = check_accuracy(
+        "blocked solve float32 against float64", blocked_solve_lower(L32, B32),
+        torch.linalg.solve_triangular(L32, B32, upper=False), ref)
+    del L64, B64, ref
+    n = N_BIG
+    times = time_rows({"blocked solve": (
+        lambda: blocked_solve_lower(L32, B32), lambda: torch.linalg.solve_triangular(L32, B32,
+                                                                                     upper=False),
+        lambda: torch.linalg.solve_triangular(L32, B32, upper=False), n * n * n,
+        (n * (n + 1) // 2 + 2 * n * n) * 4)})
+    return launches, {"wall_s": wall, "rel_err": errs,
+                      "blocked_solve": {"rel_err": solve_err, **times["blocked solve"]}}
+
+
 def gram_times(dev) -> dict:
     """Only K2 and K2b at phase 5's shapes (``--gram-times``): the wrapper's
     host time, CUDA-event time, the profiler's device time and the bound.
@@ -872,6 +1303,12 @@ def main() -> int:
     times = phase_timings(dev)
     mcmc_launches, rates, nuts_chain = phase_mcmc_path(dev)
     big_launches, walls, path2_checks = phase_big_path(dev, nuts_chain)
+    # path 3, each part with the launch counts set to 0 just before it
+    path3_launches, path3 = phase_hmc_advi(OUT_DIR / "data.tsv")
+    path3_launches["laplace"], path3["laplace"] = phase_laplace(dev)
+    path3_launches["smc"], path3["smc"] = phase_smc(dev, OUT_DIR / "data.tsv")
+    path3_launches["fitplot"], path3["fitplot"] = phase_fitplot(dev, OUT_DIR / "data_4096.tsv")
+    batch_errs, batch_times = batch_rows(dev)
     kernels = []
     for key, name, src, replaces, err in (
         ("K1", "K1 chol_batched", "gaplac_tpu_torch/csrc/chol_batched.cu",
@@ -883,7 +1320,8 @@ def main() -> int:
         ("K3", "K3 chol_tile", "gaplac_tpu_torch/csrc/chol_tile.cu",
          "gaplac_tpu/ops/cholesky.py:81", k3_err),
     ):
-        by_path = {"mcmc": mcmc_launches[key], "sample_select_predict": big_launches[key]}
+        by_path = {"mcmc": mcmc_launches[key], "sample_select_predict": big_launches[key],
+                   **{f"path3 {k}": v[key] for k, v in path3_launches.items()}}
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                "launches": sum(by_path.values()), "launches_by_path": by_path,
                "max_abs_err": err, **times[key]}
@@ -902,9 +1340,18 @@ def main() -> int:
         if key == "K3":
             row["blocked_cholesky_n4096"] = times["blocked"]
         kernels.append(row)
+        if key in ("K1", "K2"):  # the same kernel at SMC's particle batch
+            kernels.append({
+                "name": f"{name} ({512}, {N_OBS}, {N_OBS})", "route": "cuda", "source": src,
+                "replaces": replaces,
+                "launches": path3["smc"]["launches_at_512"][key],
+                "launches_by_path": {"path3 smc, at the particle batch":
+                                     path3["smc"]["launches_at_512"][key]},
+                "max_abs_err": batch_errs[key], **batch_times[f"{key} B=512"]})
     log(f"card: {card}; path 1: " + json.dumps(rates) + "; path 2 walls (s): "
         + json.dumps(walls) + "; select, predict: "
         + json.dumps({k: path2_checks[k] for k in ("select", "predict")}))
+    log("path 3: " + json.dumps(path3, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,142 @@
+"""`fitplot` command: the posterior of each additive component of the GP at
+the training inputs (port of ``gaplac_tpu/cli/fitplot_cmd.py`` for
+``--approx none``).
+
+For an additive kernel K = sum_t K_t with S = K + noise I, component t has
+
+    mu_t  = K_t S^-1 y,
+    var_t = diag(K_t) - diag(K_t S^-1 K_t),
+
+computed through the dense factorization of S (the blocked route, kernel
+K3, at n >= 2048) and each term's gram (kernel K2).
+``component_posteriors`` returns the numbers and imports no matplotlib;
+``run`` draws one panel a component against its first variable, mean +- 2
+sd.  With --mcmc, the hyperparameters are the chain's posterior means.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from gaplac_tpu_torch.cli.common import (
+    apply_outlier_policy,
+    chain_slot_groups,
+    column_values,
+    design_matrix,
+    refuse_unported,
+    response_vector,
+)
+from gaplac_tpu_torch.data import complete_cases, load_tables
+from gaplac_tpu_torch.dsl import parse_formula
+from gaplac_tpu_torch.inference.likelihoods import gaussian_obs_sigma2
+from gaplac_tpu_torch.kernels.covariance import KIND_NAMES, CompiledKernel, compile_formula
+from gaplac_tpu_torch.ops import linalg
+from gaplac_tpu_torch.runtime import Runtime
+
+log = logging.getLogger("gaplac")
+
+
+def term_gram(ck: CompiledKernel, term_idx: int, params: torch.Tensor, X1: torch.Tensor,
+              X2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gram of a single additive term (the product of its leaves)."""
+    sub = CompiledKernel(ck.varnames, ck.kinds, ck.cols, (ck.terms[term_idx],), ck.defaults,
+                         ck.leaf_vars, ck.extras)
+    return sub.gram(params, X1, X2)
+
+
+def term_label(ck: CompiledKernel, term_idx: int) -> str:
+    parts = []
+    for li in ck.terms[term_idx]:
+        v = ck.leaf_vars[li]
+        parts.append(f"{KIND_NAMES[ck.kinds[li]]}({v})" if v else KIND_NAMES[ck.kinds[li]])
+    return " * ".join(parts)
+
+
+def wanted_terms(ck: CompiledKernel, component: Optional[str]) -> List[int]:
+    """The terms ``--component`` keeps: those on any of its ;-separated
+    variables (every term without it)."""
+    if not component:
+        return list(range(len(ck.terms)))
+    wanted = {v.strip() for v in component.split(";") if v.strip()}
+    return [t for t, term in enumerate(ck.terms)
+            if {ck.leaf_vars[li] for li in term if ck.leaf_vars[li]} & wanted]
+
+
+def component_posteriors(ck: CompiledKernel, params: torch.Tensor, X: torch.Tensor,
+                         y: torch.Tensor, noise: float,
+                         terms: Sequence[int]) -> List[Tuple[int, np.ndarray, np.ndarray]]:
+    """(t, posterior mean, posterior sd) at the inputs of each additive
+    component t in ``terms``, as numpy arrays."""
+    L = linalg.cholesky(ck.gram(params, X, diag=noise))
+    alpha = linalg.solve_triangular(L.mT, linalg.solve_triangular(L, y, lower=True),
+                                    lower=False)
+    out = []
+    for t in terms:
+        Kt = term_gram(ck, t, params, X)
+        mu_t = Kt @ alpha
+        V = linalg.solve_triangular(L, Kt, lower=True)
+        var_t = torch.diagonal(Kt) - torch.sum(V * V, dim=0)
+        out.append((t, mu_t.cpu().numpy(), np.sqrt(np.maximum(var_t.cpu().numpy(), 0.0))))
+        del Kt, V
+    return out
+
+
+def run(args, rt: Runtime) -> None:
+    log.info("running 'fitplot'")
+    refuse_unported([(f"--approx {args.approx}", args.approx != "none")])
+    device, dtype = rt
+    spec = parse_formula(args.formula)
+    ck = compile_formula(spec.formula)
+    df = apply_outlier_policy(complete_cases(load_tables(args.data)), args, spec.response)
+    y = torch.tensor(response_vector(df, spec), dtype=dtype, device=device)
+    X = torch.tensor(design_matrix(df, ck), dtype=dtype, device=device)
+    n = X.shape[0]
+
+    params = ck.default_params(dtype, device)
+    if args.mcmc:
+        from gaplac_tpu_torch.cli.predict_cmd import _hyper_draws
+
+        slot_groups = chain_slot_groups(ck, args)
+        means = _hyper_draws(args.mcmc, n_hyper=len(slot_groups)).mean(axis=0)
+        for g, slots in enumerate(slot_groups):
+            if slots:
+                params = ck.set_params(params, slots, float(means[g]))
+        log.info("using chain posterior-mean hyperparameters %s",
+                 ", ".join(f"{m:.3f}" for m in means))
+
+    sigma2 = gaussian_obs_sigma2(spec.likelihood)
+    if sigma2 is None:  # non-Gaussian: unit obs noise for the decomposition
+        log.warning("fitplot uses the Gaussian component-posterior equations; "
+                    "non-Gaussian likelihood %s treated as Gaussian(1)", spec.likelihood.name)
+        sigma2 = 1.0
+    terms = wanted_terms(ck, args.component)
+    if not terms:
+        raise ValueError("No components match --component filter")
+    panels = component_posteriors(ck, params, X, y, args.jitter + sigma2, terms)
+
+    from gaplac_tpu_torch.viz.plots import pyplot
+
+    plt = pyplot()
+    fig, axes = plt.subplots(len(panels), 1, figsize=(8, 3.2 * len(panels)), squeeze=False)
+    yv = y.cpu().numpy()
+    for ax_row, (t, mu_t, sd_t) in zip(axes, panels):
+        ax = ax_row[0]
+        lead = next((ck.leaf_vars[li] for li in ck.terms[t] if ck.leaf_vars[li]), None)
+        xs = column_values(df, lead) if lead in df.columns else np.arange(n, dtype=float)
+        order = np.argsort(xs)
+        ax.scatter(xs, yv, s=10, color="gray", alpha=0.4, label="data")
+        ax.plot(xs[order], mu_t[order], color="dodgerblue", label="component mean")
+        ax.fill_between(xs[order], (mu_t - 2 * sd_t)[order], (mu_t + 2 * sd_t)[order],
+                        color="dodgerblue", alpha=0.25, label="±2 sd")
+        ax.set_title(term_label(ck, t))
+        ax.set_xlabel(lead or "index")
+        ax.legend(fontsize=8)
+    fig.tight_layout()
+    fig.savefig(args.output, dpi=120)
+    plt.close(fig)
+    log.info("Saved fitplot to %s", args.output)
+    print(f"fitplot written to {args.output} ({len(panels)} component(s))")

@@ -1,12 +1,14 @@
 """gaplac CLI of the PyTorch/CUDA port: argument schema and dispatch (port of
 ``gaplac_tpu/cli/main.py``).
 
-``sample``, ``mcmc``, ``select`` and ``predict`` are ported on the dense
-exact model (``--approx none``), with the flags and defaults of
-``gaplac_tpu``; ``fitplot`` is registered and raises "not yet ported", and
-so do the flags whose paths wait (``--approx rff|sde|auto``, ``--plot``,
-the ``--sde-*`` knobs, ...).  The commands run on the card; without one
-they refuse to start unless given ``--platform cpu``.
+The five commands (``sample``, ``mcmc``, ``select``, ``predict`` and
+``fitplot``) are ported on the dense exact model (``--approx none``, and
+``mcmc --approx laplace``), with every sampler and estimator and the flags
+and defaults of ``gaplac_tpu``; the flags whose paths wait raise "not yet
+ported" (``--approx rff|sde|auto``, the ``--sde-*`` knobs, ``--profile``,
+``--check-numerics``).  The commands run on the card; without one they
+refuse to start unless given ``--platform cpu``.  matplotlib is needed only
+for ``--plot`` and ``fitplot``.
 
 Run as ``python -m gaplac_tpu_torch.cli.main <command> ...``.
 """
@@ -15,8 +17,6 @@ from __future__ import annotations
 
 import argparse
 import sys
-
-UNPORTED_COMMANDS = ("fitplot",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -64,8 +64,8 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--infer-extra", nargs="+", default=None, metavar="VAR",
                     help="Variables whose shape parameters (Periodic period, RQ alpha) "
                     "the --mcmc chain inferred (match the mcmc run)")
-    ps.add_argument("--plot", help="File to plot to (not yet ported)")
-    ps.add_argument("--plotx", help="Plot x axis: 'x' or 'x:group' (not yet ported)")
+    ps.add_argument("--plot", help="File to plot to")
+    ps.add_argument("--plotx", help="Plot x axis: 'x' or 'x:group' (legacy --plotx)")
     ps.add_argument("-o", "--output", help="Table output - '.csv', '.tsv', or 'stdout'")
     ps.add_argument("--seed", type=int, default=None, help="PRNG seed")
     ps.add_argument("--jitter", type=float, default=0.1, help="Latent GP noise floor")
@@ -87,7 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
     pm.add_argument("--samples", type=int, default=200,
                     help="Number of posterior samples (default 200)")
     pm.add_argument("-o", "--output", help="Table to output sampling chain")
-    pm.add_argument("--plot", help="File to plot traces to (not yet ported)")
+    pm.add_argument("--plot", help="File to plot traces to")
     pm.add_argument("--warmup", type=int, default=None,
                     help="Warmup iterations (default: max(samples, 200))")
     pm.add_argument("--chains", type=int, default=1, help="Number of chains")
@@ -98,13 +98,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="Sample latents jointly (reference formulation) even for "
                     "Gaussian likelihoods")
     pm.add_argument("--sampler", choices=["nuts", "chees", "hmc", "advi"], default="nuts",
-                    help="nuts (default; chains run one after another) or chees "
+                    help="nuts (default; chains run one after another), chees "
                     "(cross-chain adaptive HMC, all chains in lockstep; wants "
-                    "--chains >= 8); hmc and advi are not yet ported")
+                    "--chains >= 8), hmc (fixed --leapfrogs trajectories, chains in "
+                    "lockstep) or advi (mean-field variational fit; --chains x "
+                    "--samples pseudodraws)")
     pm.add_argument("--leapfrogs", type=int, default=32,
-                    help="Leapfrog steps per --sampler hmc trajectory (not yet ported)")
+                    help="Leapfrog steps per --sampler hmc trajectory")
     pm.add_argument("--segments", type=int, default=None, metavar="S",
-                    help="Segmented --sampler hmc sampling (not yet ported)")
+                    help="--sampler hmc in segments of S transitions, a checkpoint "
+                    "after each sampling segment (default: 25 when n >= 2^18, else "
+                    "off; 0 forces one run); the draws equal the unsegmented run's")
     pm.add_argument("--infer-mode", choices=["shared", "pervar"], default="shared",
                     help="shared (reference parity: ONE scalar for all --infer vars) "
                     "or pervar (one hyperparameter per distinct variable)")
@@ -117,8 +121,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="NaN/Inf debugging (not yet ported)")
     pm.add_argument("--approx", choices=["none", "laplace", "rff", "sde", "auto"],
                     default="none",
-                    help="none: the dense exact model; laplace, rff, sde and auto "
-                    "are not yet ported")
+                    help="none: the dense exact model; laplace: the Laplace marginal "
+                    "over theta for non-Gaussian likelihoods; rff, sde and auto are "
+                    "not yet ported")
     pm.add_argument("--rff-features", type=int, default=256, metavar="M",
                     help="Features per stationary kernel leaf with --approx rff")
     pm.add_argument("--rff-seed", type=int, default=0,
@@ -148,7 +153,8 @@ def build_parser() -> argparse.ArgumentParser:
     pl.add_argument("-i", "--data", help="Table input (required with --formulae)")
     pl.add_argument("--plot", help="File to plot to")
     pl.add_argument("--estimator", choices=["harmonic", "smc"], default="harmonic",
-                    help="harmonic (--chains; reference parity); smc is not yet ported")
+                    help="harmonic (--chains; reference parity) or smc: a tempered-SMC "
+                    "marginal likelihood over the hyperparameter prior (--formulae mode)")
     pl.add_argument("--infer", nargs="+", default=None,
                     help="With --estimator smc: variables whose hyperparameter to "
                     "integrate over (default: all lengthscale-kind leaves)")
@@ -181,7 +187,7 @@ def build_parser() -> argparse.ArgumentParser:
     pp.add_argument("--at", help="Points to predict at, e.g. 'x=-5:0.1:5;g=0'")
     pp.add_argument("--atdata", help="Table of points to predict at (alternative to --at)")
     pp.add_argument("-o", "--output", help="Output table (.csv/.tsv)")
-    pp.add_argument("--plot", help="File to plot to (not yet ported)")
+    pp.add_argument("--plot", help="File to plot to")
     pp.add_argument("--seed", type=int, default=0)
     pp.add_argument("--jitter", type=float, default=0.1)
     pp.add_argument("--approx", choices=["none", "rff", "sde", "auto"], default="none",
@@ -197,9 +203,31 @@ def build_parser() -> argparse.ArgumentParser:
     _add_sde_flags(pp)
     _add_outlier_flags(pp)
 
-    for name in UNPORTED_COMMANDS:
-        sp = sub.add_parser(name, help=f"{name} (not yet ported)")
-        sp.add_argument("rest", nargs=argparse.REMAINDER)
+    pf = sub.add_parser("fitplot", help="Per-component posterior diagnostic plots")
+    pf.add_argument("formula", help="GP formula specification")
+    pf.add_argument("-i", "--data", required=True, help="Training data table")
+    pf.add_argument("-m", "--mcmc", help="MCMC chain table (optional)")
+    pf.add_argument("--infer", nargs="+",
+                    help="Variables the chain's hyperparameters were inferred for (must "
+                    "match the mcmc run; default: one shared lengthscale over all "
+                    "lengthscale-kind leaves)")
+    pf.add_argument("--infer-mode", choices=["shared", "pervar"], default="shared",
+                    help="Hyperparameter grouping used by the mcmc run")
+    pf.add_argument("--infer-extra", nargs="+", default=None, metavar="VAR",
+                    help="Match the mcmc run's --infer-extra")
+    pf.add_argument("--component", "--comp", dest="component",
+                    help="Only plot components involving these ;-separated variables")
+    pf.add_argument("-o", "--output", default="fitplots.png", help="Output image file")
+    pf.add_argument("--seed", type=int, default=0)
+    pf.add_argument("--jitter", type=float, default=0.1)
+    pf.add_argument("--approx", choices=["none", "rff", "sde", "auto"], default="none",
+                    help="none: the dense exact model; rff, sde and auto are not yet "
+                    "ported")
+    pf.add_argument("--rff-features", type=int, default=256, metavar="M",
+                    help="Features per stationary kernel leaf with --approx rff")
+    pf.add_argument("--rff-seed", type=int, default=0)
+    _add_sde_flags(pf)
+    _add_outlier_flags(pf)
     return p
 
 
@@ -237,10 +265,6 @@ def main(argv=None) -> int:
         return 1
 
     try:
-        if args.command in UNPORTED_COMMANDS:
-            raise NotImplementedError(
-                f"'{args.command}' is not yet ported to gaplac_tpu_torch "
-                "(use ./gaplac, the JAX package)")
         from gaplac_tpu_torch.cli.common import refuse_unported
 
         refuse_unported([
@@ -261,6 +285,8 @@ def main(argv=None) -> int:
             from gaplac_tpu_torch.cli.select_cmd import run
         elif args.command == "predict":
             from gaplac_tpu_torch.cli.predict_cmd import run
+        elif args.command == "fitplot":
+            from gaplac_tpu_torch.cli.fitplot_cmd import run
         else:
             from gaplac_tpu_torch.cli.mcmc_cmd import run
 

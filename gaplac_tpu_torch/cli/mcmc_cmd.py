@@ -1,19 +1,22 @@
 """`mcmc` command: posterior over kernel hyperparameters on the dense exact
-model (port of ``gaplac_tpu/cli/mcmc_cmd.py``).
+model, or on the Laplace marginal with ``--approx laplace`` (port of
+``gaplac_tpu/cli/mcmc_cmd.py``).
 
 Same model defaults as the reference (prior Uniform(0,20), latent jitter 0.1,
 obs sigma 1, one shared scalar for all --infer vars), the same chain-table
 schema, and ``--checkpoint/--resume`` in the same ``.npz`` format, so a
 checkpoint written by ``gaplac_tpu`` resumes here and the other way round.
 Gaussian likelihoods are marginalized unless ``--no-marginalize``.
-NUTS chains run one after another; ChEES moves all chains in lockstep.
+NUTS chains run one after another; ChEES and fixed-trajectory HMC
+(``--sampler hmc``, in segments with ``--segments``) move all chains in
+lockstep; ``--sampler advi`` fits a mean-field Gaussian and reports
+pseudodraws.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-import sys
 import time
 
 import numpy as np
@@ -31,7 +34,8 @@ from gaplac_tpu_torch.cli.common import (
     response_vector,
 )
 from gaplac_tpu_torch.inference.diagnostics import summarize
-from gaplac_tpu_torch.inference.model import build_model
+from gaplac_tpu_torch.inference.likelihoods import gaussian_obs_sigma2
+from gaplac_tpu_torch.inference.model import build_model, slot_groups_for
 from gaplac_tpu_torch.inference.nuts import run_nuts
 from gaplac_tpu_torch.inference.priors import parse_prior
 from gaplac_tpu_torch.kernels.covariance import compile_formula
@@ -45,30 +49,6 @@ HYPER_COL = "ℓ"  # reference chain schema (Turing's ℓ column)
 REPORT_BATCH = 64
 
 
-def _check_ported(args) -> None:
-    refuse_unported([
-        (f"--sampler {args.sampler}", args.sampler in ("hmc", "advi")),
-        (f"--approx {args.approx}", args.approx != "none"),
-        ("--segments", args.segments is not None), ("--plot", bool(args.plot)),
-        ("--check-numerics", args.check_numerics),
-    ])
-
-
-def _progress(enabled: bool):
-    """A ``progress(phase, i, total)`` printing about every 5% to stderr."""
-    if not enabled:
-        return None
-
-    def emit(phase, i, total):
-        stride = max(1, total // 20)
-        done = i + 1
-        if done % stride == 0 or done == total:
-            end = "\n" if done >= total else ""
-            print(f"\r[{phase}] {done}/{total}", end=end, file=sys.stderr, flush=True)
-
-    return emit
-
-
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -76,7 +56,10 @@ def _sync(device: torch.device) -> None:
 
 def run(args, rt: Runtime) -> None:
     log.info("running 'mcmc'")
-    _check_ported(args)
+    refuse_unported([
+        (f"--approx {args.approx}", args.approx not in ("none", "laplace")),
+        ("--check-numerics", args.check_numerics),
+    ])
     spec = parse_formula(args.formula)
     df = apply_outlier_policy(load_tables(args.data), args, spec.response)
     ck = compile_formula(spec.formula)
@@ -92,11 +75,26 @@ def run(args, rt: Runtime) -> None:
     if spec.likelihood.colref is not None:
         aux = torch.tensor(column_values(df, spec.likelihood.colref), dtype=dtype,
                            device=device)
-    model = build_model(
-        ck, inferable, X, y, spec.likelihood, aux=aux, jitter=args.jitter,
-        prior_bounds=parse_prior(args.prior), shared_hyper=args.infer_mode == "shared",
-        marginalize=not args.no_marginalize, infer_extras=infer_extras,
-    )
+    prior_bounds = parse_prior(args.prior)
+    shared = args.infer_mode == "shared"
+    if args.approx == "laplace":
+        from gaplac_tpu_torch.inference.laplace import build_laplace_marginal
+
+        if gaussian_obs_sigma2(spec.likelihood) is not None:
+            raise ValueError(
+                "--approx laplace is for non-Gaussian likelihoods; Gaussian "
+                "data already uses the exact marginalized path"
+            )
+        model = build_laplace_marginal(
+            ck, slot_groups_for(ck, inferable, shared=shared, infer_extras=infer_extras), X,
+            y, spec.likelihood, aux=aux, jitter=args.jitter, prior_bounds=prior_bounds,
+        )
+    else:
+        model = build_model(
+            ck, inferable, X, y, spec.likelihood, aux=aux, jitter=args.jitter,
+            prior_bounds=prior_bounds, shared_hyper=shared,
+            marginalize=not args.no_marginalize, infer_extras=infer_extras,
+        )
     log.info("model: %s, sampler dim %d, n=%d obs",
              "marginalized" if model.marginalized else "whitened latent", model.dim, y.shape[0])
 
@@ -108,8 +106,14 @@ def run(args, rt: Runtime) -> None:
             f"({num_samples}); no draws would remain"
         )
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    if args.sampler == "chees":
-        _run_chees_path(args, model, y, num_samples, num_warmup, gen, rt)
+    if args.sampler == "advi":
+        if args.resume or args.checkpoint:
+            log.warning("--resume/--checkpoint are not supported with --sampler advi; "
+                        "ignored (starting fresh, no checkpoint written)")
+        _run_advi_path(args, model, y, num_samples, gen)
+        return
+    if args.sampler in ("chees", "hmc"):
+        _run_lockstep_path(args, model, y, num_samples, num_warmup, gen, rt)
         return
 
     n_chains = args.chains
@@ -130,7 +134,6 @@ def run(args, rt: Runtime) -> None:
     def chain_density(q):
         return model.logdensity(q[None])[0]
 
-    progress = _progress(args.progress and n_chains == 1)
     t0 = time.time()
     results = []
     for c in range(n_chains):
@@ -142,7 +145,8 @@ def run(args, rt: Runtime) -> None:
         results.append(run_nuts(
             gen, chain_density, init_positions[c], num_samples, num_warmup=num_warmup,
             max_depth=args.max_depth, target_accept=args.target_accept,
-            initial_step_size=eps0, initial_inv_mass=im0, progress=progress,
+            # the chains run in turn, so each prints its own progress lines
+            initial_step_size=eps0, initial_inv_mass=im0, progress=args.progress,
         ))
     _sync(device)
     elapsed = time.time() - t0
@@ -230,14 +234,26 @@ def _emit_chains(args, model, n_obs, thetas, fs, lps, accepts=None, depths=None,
             + (f" Rhat {s['rhat']:.3f} ESS {s['ess']:.0f}" if n_chains > 1 else "")
         )
 
+    if args.plot:
+        from gaplac_tpu_torch.viz.plots import pyplot, trace_plot
 
-def _run_chees_path(args, model, y, num_samples, num_warmup, gen, rt: Runtime):
-    """--sampler chees: all chains in lockstep (inference/chees.py)."""
-    from gaplac_tpu_torch.inference.chees import run_chees
+        names = [HYPER_COL] + [f"{HYPER_COL}_{g+1}" for g in range(1, model.n_hyper)]
+        fig = trace_plot(thetas, names)
+        fig.savefig(args.plot, dpi=120)
+        pyplot().close(fig)
+        log.info("Saved trace plot to %s", args.plot)
+
+
+def _run_lockstep_path(args, model, y, num_samples, num_warmup, gen, rt: Runtime):
+    """The lockstep samplers: --sampler chees (cross-chain step-size and
+    trajectory adaptation, inference/chees.py::run_chees) and --sampler hmc
+    (fixed --leapfrogs trajectories, run_hmc, in segments with --segments)."""
+    from gaplac_tpu_torch.inference.chees import run_chees, run_hmc
 
     device, dtype = rt
+    kind = args.sampler
     n_chains = args.chains
-    if n_chains < 4:
+    if kind == "chees" and n_chains < 4:
         log.warning("ChEES adapts its trajectory length from cross-chain statistics; "
                     "--chains %d is small, using 8", n_chains)
         n_chains = max(n_chains, 8)
@@ -259,17 +275,40 @@ def _run_chees_path(args, model, y, num_samples, num_warmup, gen, rt: Runtime):
             num_warmup = 0
             log.info("resuming from %s (warmup skipped)", args.resume)
 
+    segments = args.segments
+    if kind == "hmc":
+        if segments is None:
+            segments = 25 if y.shape[0] >= (1 << 18) else 0
+            if segments:
+                log.info("n=%d >= 2^18: segmented sampling on (--segments %d; 0 forces one "
+                         "run)", y.shape[0], segments)
+    elif segments:
+        log.warning("--segments only applies to --sampler hmc; ignored")
+        segments = 0
+
     t0 = time.time()
-    res = run_chees(gen, model.logdensity, q0, num_samples, num_warmup=num_warmup,
-                    target_accept=args.target_accept, init_step_size=eps0,
-                    init_traj_length=t_len0, init_inv_mass=im0,
-                    progress=_progress(args.progress))
+    if kind == "hmc":
+        ckpt_cb = None
+        if segments and args.checkpoint:
+            def ckpt_cb(state):
+                np.savez(args.checkpoint, **state)
+
+        res = run_hmc(gen, model.logdensity, q0, num_samples, num_warmup=num_warmup,
+                      num_leapfrogs=args.leapfrogs, target_accept=args.target_accept,
+                      init_step_size=eps0, init_inv_mass=im0, progress=args.progress,
+                      segment_size=segments or None, checkpoint_cb=ckpt_cb)
+    else:
+        res = run_chees(gen, model.logdensity, q0, num_samples, num_warmup=num_warmup,
+                        target_accept=args.target_accept, init_step_size=eps0,
+                        init_traj_length=t_len0, init_inv_mass=im0, progress=args.progress)
     _sync(device)
     elapsed = time.time() - t0
+    traj_length = getattr(res, "traj_length", None)
     total = n_chains * (num_samples + num_warmup)
-    log.info("chees: %d chains x %d transitions in %.2fs (%.1f transitions/s; eps %.4f, "
-             "T %.3f, accept %.2f)", n_chains, num_samples + num_warmup, elapsed,
-             total / elapsed, res.step_size, res.traj_length,
+    log.info("%s: %d chains x %d transitions in %.2fs (%.1f transitions/s; eps %.4f, "
+             "T %.3f, accept %.2f)", kind, n_chains, num_samples + num_warmup, elapsed,
+             total / elapsed, res.step_size,
+             traj_length if traj_length is not None else args.leapfrogs * res.step_size,
              float(res.accept_prob.mean()) if res.accept_prob.numel() else float("nan"))
 
     sl = slice(args.burnin, None, args.thin)
@@ -277,11 +316,27 @@ def _run_chees_path(args, model, y, num_samples, num_warmup, gen, rt: Runtime):
     thetas, fs, lps = _chain_report(model, gen, positions, want_latents=not args.no_latents)
     if args.checkpoint:
         _save_checkpoint(args.checkpoint, positions, step_size=np.asarray(res.step_size),
-                         inv_mass=res.inv_mass, traj_length=np.asarray(res.traj_length))
+                         inv_mass=res.inv_mass, traj_length=traj_length)
         log.info("checkpoint written to %s", args.checkpoint)
     _emit_chains(args, model, y.shape[0], thetas, fs, lps,
                  accepts=res.accept_prob[:, sl].cpu().numpy(), step_size=res.step_size,
-                 traj_length=res.traj_length)
+                 traj_length=traj_length)
+
+
+def _run_advi_path(args, model, y, num_samples, gen):
+    """--sampler advi: fit the mean-field q, then --chains x --samples
+    pseudodraws from it in the chain schema."""
+    from gaplac_tpu_torch.inference.vi import run_advi, sample_posterior
+
+    t0 = time.time()
+    result = run_advi(gen, model, num_steps=args.vi_steps)
+    elbo = float(result.elbo_trace[-1])
+    log.info("ADVI: %d steps in %.2fs, final ELBO %.3f", args.vi_steps, time.time() - t0, elbo)
+    print(f"ADVI converged: final ELBO {elbo:.3f}")
+    draws = sample_posterior(gen, result, args.chains * num_samples)
+    draws = draws.reshape(args.chains, num_samples, model.dim)
+    thetas, fs, lps = _chain_report(model, gen, draws, want_latents=not args.no_latents)
+    _emit_chains(args, model, y.shape[0], thetas, fs, lps)
 
 
 def _resume_from_chain(path: str, model, n_chains: int) -> torch.Tensor:

@@ -6,7 +6,7 @@ Output: the at-variables plus ``ymu`` (posterior mean of the latent GP) and
 equal-weight Gaussian mixture over the chain's hyperparameter draws, found by
 bisection on the mixture CDF).  The draws go through one at a time, so only
 one draw's O(n^2) buffers are alive, as ``lax.map`` keeps it in
-``gaplac_tpu``.
+``gaplac_tpu``.  ``--plot`` draws the posterior ribbon (``viz/plots.py``).
 """
 
 from __future__ import annotations
@@ -81,8 +81,7 @@ def predict_one(ck, params, X, Xt, y, jitter: float, sigma2: float):
 
 def run(args, rt: Runtime) -> None:
     log.info("running 'predict'")
-    refuse_unported([(f"--approx {args.approx}", args.approx != "none"),
-                     ("--plot", bool(args.plot))])
+    refuse_unported([(f"--approx {args.approx}", args.approx != "none")])
     device, dtype = rt
     spec = parse_formula(args.formula)
     ck = compile_formula(spec.formula)
@@ -123,9 +122,27 @@ def run(args, rt: Runtime) -> None:
     mus = torch.stack(mus).cpu().numpy()
     sds = np.sqrt(torch.stack(variances).cpu().numpy())
 
+    ymu = mus.mean(axis=0)
     q05, q95 = mixture_quantiles(mus, sds, (0.05, 0.95))
     out = tdf.copy()
-    out["ymu"] = mus.mean(axis=0)
+    out["ymu"] = ymu
     out["yQ050"] = q05
     out["yQ950"] = q95
     df_output(out, args.output)
+
+    if args.plot:
+        from gaplac_tpu_torch.viz.plots import predict_plot, pyplot
+
+        if not ck.varnames:
+            raise ValueError("--plot needs a formula with at least one variable "
+                             "(bare Noise/Constant has no x-axis)")
+        xvar = ck.varnames[0]
+        fig = predict_plot(
+            tdf[xvar].values, ymu, q05, q95,
+            data_x=df[xvar].values if xvar in df.columns else None,
+            data_y=df[spec.response].values if spec.response in df.columns else None,
+            xlabel=xvar, ylabel=spec.response,
+        )
+        fig.savefig(args.plot, dpi=120)
+        pyplot().close(fig)
+        log.info("Saved plot to %s", args.plot)

@@ -7,7 +7,7 @@ blocked factorization through kernel K3 at n >= 2048, else kernel K1); the
 posterior draw conditions on ``--data``, with the hyperparameters of one
 random ``--mcmc`` chain row.  torch's generator gives other numbers than
 ``jax.random`` for the same ``--seed``; the draw is the same function of
-its normal variates.
+its normal variates.  ``--plot`` draws the samples (``viz/plots.py``).
 """
 
 from __future__ import annotations
@@ -37,8 +37,7 @@ log = logging.getLogger("gaplac")
 
 def run(args, rt: Runtime) -> None:
     log.info("running 'sample'")
-    refuse_unported([(f"--approx {args.approx}", args.approx != "none"),
-                     ("--plot", bool(args.plot)), ("--plotx", bool(args.plotx))])
+    refuse_unported([(f"--approx {args.approx}", args.approx != "none")])
     spec = parse_formula(args.spec)
     ck = compile_formula(spec.formula)
     if args.atdata:
@@ -60,6 +59,8 @@ def run(args, rt: Runtime) -> None:
         y = mvn.sample_mvn_chol(gen, mvn.chol(K))
     df[spec.response] = y.cpu().numpy()
     df_output(df, args.output)
+    if args.plot:
+        _plot(args, spec, ck, df, rt)
 
 
 def posterior_at(ck, params, X, Xt, y, jitter: float, sigma2: float):
@@ -100,3 +101,38 @@ def _sample_posterior(args, spec, ck, tdf, params, gen, rt: Runtime) -> torch.Te
         sigma2 = 1.0
     mu, cov = posterior_at(ck, params, X, Xt, y, args.jitter, sigma2)
     return mvn.sample_mvn(gen, cov, mean=mu, jitter=args.jitter)
+
+
+def _plot(args, spec, ck, df, rt: Runtime) -> None:
+    """--plot: the 1-D sample plot with its posterior refit, or with
+    ``--plotx x:group`` (or several variables) the grouped scatter."""
+    from gaplac_tpu_torch.viz.plots import grouped_sample_plot, pyplot, sample_plot
+
+    group = None
+    if args.plotx:
+        xvar, _, group = args.plotx.partition(":")
+        xvar = xvar.strip()
+        group = group.strip() or None
+        if xvar not in df.columns or (group and group not in df.columns):
+            raise ValueError(f"--plotx names unknown column(s) in {args.plotx!r}")
+    elif len(set(ck.varnames)) == 1:
+        xvar = ck.varnames[0]
+    else:
+        log.warning(
+            "Auto-generated sample plots not available for multivariable models, "
+            "use `--plotx x[:group]` or `--output` to make a table and plot manually"
+        )
+        return
+    log.info("Plotting output")
+    if group or len(set(ck.varnames)) > 1:
+        # grouped or multivariable: scatter and lines per group, no refit
+        fig = grouped_sample_plot(
+            df[xvar].values, df[spec.response].values, df[group].values if group else None,
+            xlabel=xvar, ylabel=spec.response, grouplabel=group,
+        )
+    else:
+        fig = sample_plot(ck, df[xvar].values, df[spec.response].values, xlabel=xvar,
+                          ylabel=spec.response, device=rt.device, dtype=rt.dtype)
+    fig.savefig(args.plot, dpi=120)
+    pyplot().close(fig)
+    log.info("Saved plot to %s", args.plot)

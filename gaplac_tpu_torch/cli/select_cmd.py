@@ -1,12 +1,15 @@
 """`select` command: model comparison by log2 Bayes factors (port of
-``gaplac_tpu/cli/select_cmd.py`` for ``--estimator harmonic`` and
-``--approx none``).
+``gaplac_tpu/cli/select_cmd.py`` for ``--approx none``).
 
 --chains: each model's marginal likelihood is the harmonic mean of 2^lp over
 its chain's ``lp`` (or legacy ``lπ``) column, in log space.
 --formulae: the fixed-hyperparameter log density log N(y; 0, K + jitter I)
 of each formula on --data (complete cases), through the dense factorization
-(kernel K3's blocked route at n >= 2048).  Positive values favour model 1.
+(kernel K3's blocked route at n >= 2048); with ``--estimator smc``, a
+tempered-SMC marginal likelihood over the Uniform(0, 20) prior of the
+formula's hyperparameters (``inference/smc.py``; the particles' log
+likelihoods are one batched call through K2 and K1).  Positive values
+favour model 1.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from scipy.special import logsumexp
 from gaplac_tpu_torch.cli.common import design_matrix, refuse_unported, response_vector
 from gaplac_tpu_torch.data import complete_cases, load_tables, read_table
 from gaplac_tpu_torch.dsl import parse_formula
-from gaplac_tpu_torch.kernels.covariance import compile_formula
+from gaplac_tpu_torch.kernels.covariance import LENGTHSCALE_KINDS, compile_formula
 from gaplac_tpu_torch.ops import mvn
 from gaplac_tpu_torch.runtime import Runtime
 
@@ -73,13 +76,16 @@ def run(args, rt: Runtime) -> float:
         lp1 = log2_harmonic_mean(_read_lp(chains[0]))
         lp2 = log2_harmonic_mean(_read_lp(chains[1]))
     elif formulae:
-        refuse_unported([("--estimator smc", args.estimator == "smc"),
-                         (f"--approx {args.approx}", args.approx != "none")])
+        refuse_unported([(f"--approx {args.approx}", args.approx != "none")])
         if not args.data:
             raise ValueError("'select --formulae' requires '--data'")
         spec1, spec2 = parse_formula(formulae[0]), parse_formula(formulae[1])
         df = complete_cases(load_tables(args.data))
-        lp1, lp2 = fixed_lp(spec1, df, args.jitter, rt), fixed_lp(spec2, df, args.jitter, rt)
+        if args.estimator == "smc":
+            lp1, lp2 = smc_evidence(args, spec1, df, rt), smc_evidence(args, spec2, df, rt)
+        else:
+            lp1 = fixed_lp(spec1, df, args.jitter, rt)
+            lp2 = fixed_lp(spec2, df, args.jitter, rt)
     else:
         raise ValueError(
             "'select' command requires either '--chains' or '--formulae' arguments"
@@ -94,3 +100,44 @@ def run(args, rt: Runtime) -> float:
     log.info("\n%s", report)
     print(report)
     return bayes
+
+
+def smc_evidence(args, spec, df, rt: Runtime) -> float:
+    """Tempered-SMC log marginal likelihood of one formula, integrating the
+    Uniform(0, 20) prior of its --infer (default: every lengthscale-kind
+    leaf, shared) and --infer-extra hyperparameters."""
+    from gaplac_tpu_torch.inference.model import build_model
+    from gaplac_tpu_torch.inference.smc import smc_log_evidence_gp
+
+    device, dtype = rt
+    ck = compile_formula(spec.formula)
+    y = torch.tensor(response_vector(df, spec), dtype=dtype, device=device)
+    X = torch.tensor(design_matrix(df, ck), dtype=dtype, device=device)
+    if args.infer:
+        inferable = list(args.infer)
+    else:
+        inferable = [v for v, k in zip(ck.leaf_vars, ck.kinds) if v and k in LENGTHSCALE_KINDS]
+    # --infer-extra only where this formula has a shape parameter on the
+    # variable (the two compared formulas may differ)
+    infer_extras = [v for v in (args.infer_extra or [])
+                    if any(lv == v and es for lv, es in zip(ck.leaf_vars, ck.extra_slots))]
+    if not inferable and not infer_extras:
+        lp = fixed_lp(spec, df, args.jitter, rt)
+        log.info("SMC: %s has no inferable hyperparameter; fixed logpdf %.4f", spec.formula, lp)
+        return lp
+    model = build_model(ck, inferable, X, y, spec.likelihood, jitter=args.jitter,
+                        infer_extras=infer_extras)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    res = smc_log_evidence_gp(gen, model, y, n_particles=args.particles)
+    name = f"{spec.response} ~| {spec.formula}"
+    if res.final_beta < 1.0:
+        log.warning(
+            "SMC for %s stopped at inverse temperature beta=%.4f < 1 "
+            "(max stages reached): the reported evidence is for a partially "
+            "tempered target and will bias the Bayes factor — rerun with "
+            "more particles (--particles) for a tighter tempering schedule",
+            name, res.final_beta,
+        )
+    log.info("SMC evidence for %s: %.4f (%d stages, %d particles)", name, res.log_evidence,
+             res.n_stages, args.particles)
+    return res.log_evidence

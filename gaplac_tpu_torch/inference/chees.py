@@ -1,4 +1,4 @@
-"""ChEES-HMC, cross-chain adaptive HMC (port of ``run_chees`` in
+"""ChEES-HMC, cross-chain adaptive HMC, and fixed-trajectory HMC (port of
 ``gaplac_tpu/inference/chees.py``; Hoffman, Radul & Sountsov, AISTATS 2021).
 
 All chains move in lockstep over (C, dim) for the same Halton-jittered
@@ -9,18 +9,28 @@ trajectory length follows Adam ascent on the ChEES criterion.  The scalar
 adaptation state lives on the host (one device-to-host transfer per
 transition); positions, momenta and the Welford mass accumulator stay on
 the device.
+
+``run_hmc`` runs the same lockstep chains for a fixed number of leapfrogs
+a transition, with the step size jittered by a Halton draw in [0.8, 1.2);
+its transition is a function of ``HmcCarry``, the whole chain state (the
+generator included), which ``run_hmc`` threads through segments of any size
+(``--segments``) and draws the same numbers.
 """
 
 from __future__ import annotations
 
+import logging
 import math
-from typing import Callable, NamedTuple, Optional
+import time
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from gaplac_tpu_torch.inference.hmc import (
+    DualAveragingState,
     LeapfrogState,
+    WelfordState,
     da_init,
     da_update,
     leapfrog_step,
@@ -30,6 +40,9 @@ from gaplac_tpu_torch.inference.hmc import (
     welford_update_batch,
     welford_variance,
 )
+from gaplac_tpu_torch.inference.progress import progress_emitter
+
+log = logging.getLogger("gaplac")
 
 
 class CheesResult(NamedTuple):
@@ -54,6 +67,12 @@ def halton(i: int, base: int = 2) -> float:
     return float(r)
 
 
+def accept_uniform(gen: torch.Generator, n_chains: int, like: torch.Tensor) -> torch.Tensor:
+    """One U(0, 1) a chain for the Metropolis test, in ``like``'s dtype and
+    on its device."""
+    return torch.rand((n_chains,), generator=gen, dtype=like.dtype, device=like.device)
+
+
 def run_chees(
     gen: torch.Generator,
     logdensity: Callable[[torch.Tensor], torch.Tensor],
@@ -66,7 +85,7 @@ def run_chees(
     init_traj_length: float = 1.0,
     adam_lr: float = 0.025,
     init_inv_mass=None,
-    progress: Optional[Callable[[str, int, int], None]] = None,
+    progress: bool = False,
 ) -> CheesResult:
     """Batched-chain ChEES-HMC; ``logdensity`` maps (C, dim) to (C,)."""
     n_chains, dim = initial_positions.shape
@@ -82,6 +101,8 @@ def run_chees(
     inv_mass = (torch.ones((dim,), dtype=dtype, device=device) if init_inv_mass is None
                 else torch.as_tensor(init_inv_mass, dtype=dtype, device=device))
     it = 0
+    warm_progress = progress_emitter("warmup", num_warmup, progress)
+    samp_progress = progress_emitter("sampling", num_samples, progress)
 
     def transition(adapt: bool):
         nonlocal q, logp, grad, da, log_t, adam_m, adam_v, adam_i, wf, it
@@ -98,7 +119,7 @@ def run_chees(
         log_acc = (st.logp - ke1) - (logp - ke0)
         log_acc = torch.where(torch.isnan(log_acc), torch.full_like(log_acc, -math.inf), log_acc)
         alpha = torch.clamp(torch.exp(log_acc), max=1.0)
-        u = torch.rand((n_chains,), generator=gen, dtype=dtype, device=device)
+        u = accept_uniform(gen, n_chains, q)
         accept = torch.log(u) < log_acc
         q_prev = q
         q = torch.where(accept[:, None], st.q, q)
@@ -141,8 +162,7 @@ def run_chees(
                 inv_mass = q.var(dim=0, unbiased=False) + 1e-3
                 wf = welford_init(dim, dtype, device)
             transition(adapt=True)
-            if progress:
-                progress("warmup", i, num_warmup)
+            warm_progress(i)
         inv_mass_final = welford_variance(wf)
         # keep the whitened step eps*sqrt(inv_mass) invariant across the swap
         ratio = math.exp(0.5 * float(torch.log(inv_mass / inv_mass_final).mean()))
@@ -159,8 +179,7 @@ def run_chees(
         qs.append(qi)
         lps.append(lpi)
         alphas.append(ai)
-        if progress:
-            progress("sampling", i, num_samples)
+        samp_progress(i)
     empty = initial_positions.new_zeros
     return CheesResult(
         torch.stack(qs, dim=1) if qs else empty((n_chains, 0, dim)),
@@ -170,3 +189,183 @@ def run_chees(
         math.exp(log_t),
         inv_mass,
     )
+
+
+# ---------------------------------------------------------------------------
+# fixed-trajectory HMC (gaplac_tpu/inference/chees.py:288-480)
+# ---------------------------------------------------------------------------
+
+
+class HmcResult(NamedTuple):
+    positions: torch.Tensor     # (chains, num_samples, dim)
+    logps: torch.Tensor         # (chains, num_samples)
+    accept_prob: torch.Tensor   # (chains, num_samples)
+    step_size: float
+    inv_mass: torch.Tensor
+
+
+class HmcCarry(NamedTuple):
+    """The whole between-transition state of the lockstep chains: the
+    generator the transitions draw from (its state is the chain's random
+    stream; ``gen.get_state()`` snapshots it), positions with their log
+    density and gradient, the dual-averaging and Welford accumulators, the
+    mass and the transition count.  Any loop that threads it through
+    ``hmc_transition_factory``'s transition draws the same numbers."""
+
+    gen: torch.Generator
+    q: torch.Tensor
+    logp: torch.Tensor
+    grad: torch.Tensor
+    da: DualAveragingState
+    wf: WelfordState
+    inv_mass: torch.Tensor
+    iter: int
+
+
+def step_jitter(i: int) -> float:
+    """0.8 + 0.4 * halton(i) in float32, as ``gaplac_tpu``'s compiled
+    transition computes it on the CPU: its Halton draw is float32, and XLA
+    contracts the product and the sum into one fused multiply-add, so the
+    result is rounded to float32 once."""
+    fused = float(np.float32(0.4)) * float(np.float32(halton(i))) + float(np.float32(0.8))
+    return float(np.float32(fused))
+
+
+def hmc_transition_factory(
+    logdensity: Callable[[torch.Tensor], torch.Tensor],
+    n_chains: int,
+    dim: int,
+    num_leapfrogs: int,
+    target_accept: float = 0.651,
+):
+    """One fixed-trajectory lockstep HMC transition (``num_leapfrogs``
+    batched leapfrogs at a Halton-jittered step, pooled dual averaging and
+    a batched Welford fold while adapting) as a function of ``HmcCarry``.
+    Returns (transition, batched value_and_grad)."""
+    vag = value_and_grad(logdensity)
+
+    def transition(c: HmcCarry, adapt: bool):
+        # mild multiplicative jitter decorrelates the fixed trajectory
+        # length from the target's periods (Neal 2011, section 3.2)
+        eps = math.exp(c.da.log_eps) * step_jitter(c.iter)
+        p0 = sample_momentum(c.gen, c.inv_mass, (n_chains, dim))
+        ke0 = 0.5 * torch.sum(p0 * p0 * c.inv_mass, dim=1)
+        st = LeapfrogState(c.q, p0, c.logp, c.grad)
+        for _ in range(num_leapfrogs):
+            st = leapfrog_step(vag, st, eps, c.inv_mass)
+        ke1 = 0.5 * torch.sum(st.p * st.p * c.inv_mass, dim=1)
+        log_acc = (st.logp - ke1) - (c.logp - ke0)
+        log_acc = torch.where(torch.isnan(log_acc), torch.full_like(log_acc, -math.inf), log_acc)
+        alpha = torch.clamp(torch.exp(log_acc), max=1.0)
+        accept = torch.log(accept_uniform(c.gen, n_chains, c.q)) < log_acc
+        q = torch.where(accept[:, None], st.q, c.q)
+        logp = torch.where(accept, st.logp, c.logp)
+        grad = torch.where(accept[:, None], st.grad, c.grad)
+        new = c._replace(q=q, logp=logp, grad=grad, iter=c.iter + 1)
+        if adapt:
+            new = new._replace(da=da_update(c.da, float(alpha.mean()), target=target_accept),
+                               wf=welford_update_batch(c.wf, q))
+        return new, (q, logp, alpha)
+
+    return transition, vag
+
+
+def hmc_init_carry(vag, gen: torch.Generator, initial_positions: torch.Tensor,
+                   init_step_size: float, init_inv_mass=None) -> HmcCarry:
+    """The sampler's first ``HmcCarry``."""
+    q = initial_positions
+    dim, dtype, device = q.shape[1], q.dtype, q.device
+    logp0, grad0 = vag(q)
+    inv_mass = (torch.ones((dim,), dtype=dtype, device=device) if init_inv_mass is None
+                else torch.as_tensor(init_inv_mass, dtype=dtype, device=device))
+    return HmcCarry(gen, q, logp0, grad0, da_init(float(init_step_size)),
+                    welford_init(dim, dtype, device), inv_mass, 0)
+
+
+def hmc_midpoint_update(carry: HmcCarry, h1: int) -> HmcCarry:
+    """The warmup midpoint: the cross-chain variance becomes the mass, the
+    Welford accumulator restarts, and dual averaging restarts at its
+    averaged step (unless the first half was empty)."""
+    var = carry.q.var(dim=0, unbiased=False) + 1e-3
+    da = da_init(math.exp(carry.da.log_eps_avg)) if h1 >= 1 else carry.da
+    wf = welford_init(carry.q.shape[1], carry.q.dtype, carry.q.device)
+    return carry._replace(inv_mass=var, wf=wf, da=da)
+
+
+def hmc_finalize_adaptation(carry: HmcCarry) -> Tuple[HmcCarry, float]:
+    """After warmup: the Welford mass, and the averaged step rescaled for
+    the mass change (eps * sqrt(old / new), geometric mean over dims)."""
+    inv_mass_final = welford_variance(carry.wf)
+    ratio = math.exp(0.5 * float(torch.log(carry.inv_mass / inv_mass_final).mean()))
+    eps_final = math.exp(carry.da.log_eps_avg) * ratio
+    return carry._replace(da=da_init(eps_final), inv_mass=inv_mass_final), eps_final
+
+
+def run_hmc(
+    gen: torch.Generator,
+    logdensity: Callable[[torch.Tensor], torch.Tensor],
+    initial_positions: torch.Tensor,   # (chains, dim)
+    num_samples: int,
+    num_warmup: int = 500,
+    num_leapfrogs: int = 32,
+    target_accept: float = 0.651,
+    init_step_size: float = 0.1,
+    init_inv_mass=None,
+    progress: bool = False,
+    segment_size: Optional[int] = None,
+    checkpoint_cb: Optional[Callable[[dict], None]] = None,
+) -> HmcResult:
+    """Batched-chain fixed-trajectory HMC: ``num_leapfrogs`` leapfrogs a
+    transition, each one batched density call over the chains.  Warmup as
+    ``run_chees``: unit mass while the step finds its scale, the cross-chain
+    variance as the mass at the midpoint, then re-adaptation under it while
+    a batched Welford gathers the final mass.
+
+    Each phase (warmup, sampling) is driven in segments of ``segment_size``
+    transitions, one segment when it is None; the segments thread the same
+    ``HmcCarry`` through the same transition, so the draws do not depend on
+    the segment size.  ``checkpoint_cb(state)`` is called after each
+    sampling segment with the latest ``positions`` (chains, dim),
+    ``step_size`` and ``inv_mass`` (numpy and float)."""
+    if segment_size is not None and segment_size < 1:
+        raise ValueError(f"segment_size must be >= 1, got {segment_size}")
+    n_chains, dim = initial_positions.shape
+    transition, vag = hmc_transition_factory(logdensity, n_chains, dim, num_leapfrogs,
+                                             target_accept)
+    carry = hmc_init_carry(vag, gen, initial_positions, init_step_size, init_inv_mass)
+
+    def drive(carry: HmcCarry, phase: str, n_steps: int, adapt: bool, outs=None):
+        emit = progress_emitter(phase, n_steps, progress)
+        size, t0 = segment_size or n_steps, time.time()
+        for i in range(n_steps):
+            if adapt and i == n_steps // 2:
+                carry = hmc_midpoint_update(carry, i)
+            carry, out = transition(carry, adapt)
+            emit(i)
+            if outs is not None:
+                outs.append(out)
+            done = i + 1
+            if done % size and done < n_steps:
+                continue
+            # the end of a segment
+            if outs is not None and checkpoint_cb is not None:
+                checkpoint_cb({"positions": carry.q.cpu().numpy(),
+                               "step_size": math.exp(carry.da.log_eps),
+                               "inv_mass": carry.inv_mass.cpu().numpy()})
+            if segment_size and progress:
+                log.info("segmented hmc %s: %d/%d transitions (%.1f tr/s)", phase, done,
+                         n_steps, done * n_chains / max(time.time() - t0, 1e-9))
+        return carry
+
+    eps_final = float(init_step_size)
+    if num_warmup > 0:
+        carry = drive(carry, "warmup", num_warmup, True)
+        carry, eps_final = hmc_finalize_adaptation(carry)
+    outs = []
+    carry = drive(carry, "sampling", num_samples, False, outs)
+    if not outs:
+        empty = initial_positions.new_zeros
+        return HmcResult(empty((n_chains, 0, dim)), empty((n_chains, 0)), empty((n_chains, 0)),
+                         eps_final, carry.inv_mass)
+    qs, logps, alphas = (torch.stack(t, dim=1) for t in zip(*outs))
+    return HmcResult(qs, logps, alphas, eps_final, carry.inv_mass)

@@ -34,6 +34,7 @@ from gaplac_tpu_torch.inference.hmc import (
     welford_update,
     welford_variance,
 )
+from gaplac_tpu_torch.inference.progress import progress_emitter
 
 DIVERGENCE_THRESHOLD = 1000.0  # Stan's default energy-error cutoff
 
@@ -167,12 +168,11 @@ def run_nuts(
     target_accept: float = 0.65,
     initial_step_size: Optional[float] = None,
     initial_inv_mass: Optional[torch.Tensor] = None,
-    progress: Optional[Callable[[str, int, int], None]] = None,
+    progress: bool = False,
 ) -> NUTSResult:
     """Single-chain adaptive NUTS: Stan-style warmup, then sampling.
     ``logdensity`` maps q (dim,) to a scalar; ``gen`` lives on q's device.
-    ``progress(phase, i, total)``, when given, is called after every
-    transition."""
+    ``progress`` prints progress lines to stderr (``inference/progress.py``)."""
     vag = value_and_grad(logdensity)
     kernel = make_nuts_kernel(logdensity, max_depth=max_depth)
     q0 = initial_position
@@ -186,6 +186,8 @@ def run_nuts(
     eps0 = (find_reasonable_step_size(vag, gen, q0, inv_mass) if initial_step_size is None
             else float(initial_step_size))
 
+    warm_progress = progress_emitter("warmup", num_warmup, progress)
+    samp_progress = progress_emitter("sampling", num_samples, progress)
     sched = stan_warmup_schedule(num_warmup)
     da = da_init(eps0)
     wf = welford_init(dim, dtype, device)
@@ -199,8 +201,7 @@ def run_nuts(
             inv_mass = welford_variance(wf)
             da = da_init(math.exp(da.log_eps))
             wf = welford_init(dim, dtype, device)
-        if progress:
-            progress("warmup", i, num_warmup)
+        warm_progress(i)
     eps_final = math.exp(da.log_eps_avg) if num_warmup > 0 else eps0
 
     qs, logps, accs, depths, divs = [], [], [], [], []
@@ -211,8 +212,7 @@ def run_nuts(
         accs.append(info.accept_prob)
         depths.append(info.depth)
         divs.append(info.diverging)
-        if progress:
-            progress("sampling", i, num_samples)
+        samp_progress(i)
     positions = torch.stack(qs) if qs else q0.new_zeros((0, dim))
     logps_t = torch.stack(logps) if logps else q0.new_zeros((0,))
     return NUTSResult(positions, logps_t, np.asarray(accs, float), np.asarray(depths, np.int32),

@@ -45,6 +45,13 @@ _KIND_OF = {
     Periodic: K_PERIODIC, RQ: K_RQ,
 }
 
+#: kind code -> display name (the CLI's labels)
+KIND_NAMES = {
+    K_SQEXP: "SqExp", K_OU: "OU", K_LINEAR: "Linear", K_CAT: "Cat", K_NOISE: "Noise",
+    K_CONST: "Constant", K_MATERN32: "Matern32", K_MATERN52: "Matern52",
+    K_PERIODIC: "Periodic", K_RQ: "RQ",
+}
+
 #: kinds whose scalar hyperparameter is a lengthscale (the chain-sampled
 #: class that predict/sample take from a chain without --infer)
 LENGTHSCALE_KINDS = (K_SQEXP, K_OU, K_MATERN32, K_MATERN52, K_PERIODIC, K_RQ)

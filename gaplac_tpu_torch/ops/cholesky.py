@@ -28,6 +28,15 @@ the plain factor into the view), so the two devices run one algorithm.
 ``CholeskyBlocked`` makes the blocked route differentiable with the same
 pullback as ``CholeskyBatched``.
 
+``blocked_solve_lower``/``blocked_solve_upper`` are ``gaplac_tpu``'s
+recursive triangular solves (``_rtrsm_left_lower``/``_rtrsm_left_upper``)
+for a matrix right-hand side: the leaves go to
+``torch.linalg.solve_triangular``, the off-diagonal updates to
+``torch.matmul``, and the solution is allocated once and written in place
+by halves, as ``blocked_cholesky`` writes its factor.  ``ops/linalg.py``
+does not route ``solve_triangular`` through them (``gaplac_tpu`` does so
+only on the TPU).
+
 ``cholesky_nocc`` (a TPU workaround) is not ported.
 """
 
@@ -234,3 +243,50 @@ class CholeskyBlocked(torch.autograd.Function):
     def backward(ctx, Lbar):
         (L,) = ctx.saved_tensors
         return cholesky_pullback(L, Lbar)
+
+
+# ---------------------------------------------------------------------------
+# the recursive blocked triangular solves (gaplac_tpu/ops/cholesky.py:169-244)
+# ---------------------------------------------------------------------------
+
+
+def _rtrsm_left_lower(L: torch.Tensor, B: torch.Tensor, base: int, out: torch.Tensor) -> None:
+    """out = L^{-1} B (L lower), by halves:
+    X1 = L11^{-1} B1;  X2 = L22^{-1} (B2 - L21 X1); ``out`` is a view."""
+    n = L.shape[0]
+    if n <= base:
+        torch.linalg.solve_triangular(L, B, upper=False, out=out)
+        return
+    h = _split_point(n, base)
+    _rtrsm_left_lower(L[:h, :h], B[:h], base, out[:h])
+    _rtrsm_left_lower(L[h:, h:], B[h:] - L[h:, :h] @ out[:h], base, out[h:])
+
+
+def _rtrsm_left_upper(U: torch.Tensor, B: torch.Tensor, base: int, out: torch.Tensor) -> None:
+    """out = U^{-1} B (U upper), by halves, the lower half first:
+    X2 = U22^{-1} B2;  X1 = U11^{-1} (B1 - U12 X2); ``out`` is a view."""
+    n = U.shape[0]
+    if n <= base:
+        torch.linalg.solve_triangular(U, B, upper=True, out=out)
+        return
+    h = _split_point(n, base)
+    _rtrsm_left_upper(U[h:, h:], B[h:], base, out[h:])
+    _rtrsm_left_upper(U[:h, :h], B[:h] - U[:h, h:] @ out[h:], base, out[:h])
+
+
+def _blocked_solve(solve, T: torch.Tensor, B: torch.Tensor, base: int) -> torch.Tensor:
+    vec = B.dim() == 1
+    B2 = B[:, None] if vec else B
+    X = torch.empty(B2.shape, dtype=B2.dtype, device=B2.device)
+    solve(T, B2, base, X)
+    return X[:, 0] if vec else X
+
+
+def blocked_solve_lower(L: torch.Tensor, B: torch.Tensor, base: int = CHOL_TILE) -> torch.Tensor:
+    """X with L X = B for lower-triangular L (n, n); B (n,) or (n, k)."""
+    return _blocked_solve(_rtrsm_left_lower, L, B, base)
+
+
+def blocked_solve_upper(U: torch.Tensor, B: torch.Tensor, base: int = CHOL_TILE) -> torch.Tensor:
+    """X with U X = B for upper-triangular U (n, n); B (n,) or (n, k)."""
+    return _blocked_solve(_rtrsm_left_upper, U, B, base)

@@ -6,8 +6,9 @@ as ``gaplac_tpu/ops/__init__.py`` registers it (``register(min_n=2048)``);
 every other factorization, batched or small, goes through
 ``CholeskyBatched`` (kernel K1).  The route depends only on the shape, so
 the CPU runs the same algorithm with the kernels' plain versions.
-``solve_triangular`` stays on ``torch.linalg.solve_triangular``; the blocked
-solves are not ported yet.
+``solve_triangular`` stays on ``torch.linalg.solve_triangular``: the blocked
+solves (``ops/cholesky.py::blocked_solve_lower``/``_upper``) are not on a
+route, since ``gaplac_tpu`` takes them only on the TPU.
 """
 
 from __future__ import annotations

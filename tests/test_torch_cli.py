@@ -119,20 +119,23 @@ def test_jax_checkpoint_resumes_and_port_checkpoint_loads_in_jax(tmp_path, sampl
 
 
 def test_unported_paths_exit_with_error(tmp_path, capsys):
-    assert main(["--platform", "cpu", "fitplot", "y ~| SqExp(:x)", "--data", "d.tsv"]) == 2
+    """What stays unported: --approx rff/sde/auto on each command,
+    --profile and --check-numerics."""
     data = tmp_path / "data.tsv"
     _write_data(data)
-    for extra in (["--approx", "sde"], ["--sampler", "advi"]):
+    for extra in (["--approx", "sde"], ["--check-numerics"]):
         assert main(["--platform", "cpu", "mcmc", "y ~| SqExp(:x)", "--data", str(data),
                      "--infer", "x", *extra]) == 2
     for argv in (["predict", "y ~| SqExp(:x)", "--data", str(data), "--at", "x=0:1:2",
                   "--approx", "rff"],
                  ["select", "--formulae", "y ~| SqExp(:x)", "y ~| OU(:x)", "--data", str(data),
-                  "--estimator", "smc"],
-                 ["sample", "y ~| SqExp(:x)", "--at", "x=0:1:2", "--plot", "p.png"]):
+                  "--approx", "auto"],
+                 ["sample", "y ~| SqExp(:x)", "--at", "x=0:1:2", "--approx", "sde"],
+                 ["fitplot", "y ~| SqExp(:x)", "--data", str(data), "--approx", "rff"],
+                 ["--profile", "sample", "y ~| SqExp(:x)", "--at", "x=0:1:2"]):
         assert main(["--platform", "cpu", *argv]) == 2
     errors = [s for s in capsys.readouterr().err.splitlines() if s.startswith("error:")]
-    assert len(errors) == 6 and all("not yet ported" in s for s in errors), errors
+    assert len(errors) == 7 and all("not yet ported" in s for s in errors), errors
 
 
 def test_no_card_needs_platform_cpu(tmp_path, capsys, monkeypatch):
@@ -155,9 +158,11 @@ def test_no_card_needs_platform_cpu(tmp_path, capsys, monkeypatch):
 
 def test_port_imports_no_jax():
     """No module of the port, and not chip_smoke.py, imports jax or anything
-    of gaplac_tpu."""
+    of gaplac_tpu; every module imports without matplotlib."""
     code = (
         "import sys, importlib, pkgutil\n"
+        # and without matplotlib: only --plot and fitplot's drawing import it
+        "sys.modules['matplotlib'] = None\n"
         "import gaplac_tpu_torch\n"
         "for m in pkgutil.walk_packages(gaplac_tpu_torch.__path__, 'gaplac_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"

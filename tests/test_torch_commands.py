@@ -198,3 +198,100 @@ def test_guide_select_formulae_oracle_through_the_port(tmp_path, capsys):
     jb, tb = _select_both(argv)
     assert 4.0 <= tb <= 11.3, tb
     _close(tb, jb)
+
+
+# ---------------------------------------------------------------------------
+# the samplers and estimators of the dense model: hmc (whole and in
+# segments), advi, --approx laplace and select --estimator smc
+# ---------------------------------------------------------------------------
+
+
+def _write_bernoulli(path, n, seed):
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(-3, 3, n))
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-2 * np.sin(1.5 * x)))).astype(int)
+    pd.DataFrame({"x": x, "y": y}).to_csv(path, sep="\t", index=False)
+
+
+def _mcmc_table(fn, tmp, name, argv, capsys):
+    """One mcmc run through ``fn`` (either CLI): its table and stdout."""
+    path = tmp / f"{name}.tsv"
+    assert fn(["--platform", "cpu", "mcmc", *argv, "--output", str(path)]) == 0
+    return pd.read_csv(path, sep="\t"), capsys.readouterr().out
+
+
+def test_mcmc_laplace_hmc_schema_matches_jax(tmp_path, capsys):
+    """--approx laplace with --sampler hmc, two chains of five draws, through
+    both CLIs: the same columns in the same order and the same report
+    lines; and the port's --segments run writes the unsegmented table byte
+    for byte, with its checkpoint loadable by gaplac_tpu."""
+    from gaplac_tpu.cli import mcmc_cmd as jax_mcmc
+
+    data = tmp_path / "bern.tsv"
+    _write_bernoulli(data, 14, 3)
+    argv = ["y : Bernoulli ~| SqExp(:x)", "--data", str(data), "--infer", "x", "--approx",
+            "laplace", "--sampler", "hmc", "--leapfrogs", "3", "--chains", "2", "--samples",
+            "5", "--warmup", "4"]
+    ref, ref_out = _mcmc_table(jax_main, tmp_path, "jax", argv, capsys)
+    got, got_out = _mcmc_table(main, tmp_path, "torch", argv, capsys)
+    fx = [f"fx[{i + 1}]" for i in range(14)]
+    assert list(got.columns) == list(ref.columns) == (["iteration", "chain", "ℓ"] + fx
+                                                      + ["lp", "acceptance_rate", "step_size"])
+    assert len(got) == len(ref) == 10 and np.isfinite(got.to_numpy(float)).all()
+    assert [s.split(":")[0] for s in got_out.splitlines()] == \
+        [s.split(":")[0] for s in ref_out.splitlines()] == ["posterior ℓ"]
+
+    ckpt = tmp_path / "seg_ckpt"
+    seg, _ = _mcmc_table(main, tmp_path, "torch_seg", argv + ["--segments", "2", "--checkpoint",
+                                                               str(ckpt)], capsys)
+    assert (tmp_path / "torch_seg.tsv").read_bytes() == (tmp_path / "torch.tsv").read_bytes()
+    back = jax_mcmc._load_checkpoint(str(ckpt), 2, 1)
+    assert back["positions"].shape == (2, 1) and "traj_length" not in back
+
+
+def test_mcmc_advi_schema_and_report(tmp_path, capsys):
+    """--sampler advi: gaplac_tpu's columns (no sampler statistics), its
+    report line, and the warning that --checkpoint is ignored."""
+    from gaplac_tpu.cli import mcmc_cmd as jax_mcmc
+
+    data = tmp_path / "data.tsv"
+    _write_data(data, 12, 1)
+    ckpt = tmp_path / "never"
+    got, out = _mcmc_table(main, tmp_path, "advi", ["y ~| SqExp(:x)", "--data", str(data),
+                                                     "--infer", "x", "--sampler", "advi",
+                                                     "--vi-steps", "30", "--chains", "2",
+                                                     "--samples", "5", "--checkpoint",
+                                                     str(ckpt)], capsys)
+    rng = np.random.default_rng(0)
+    args = type("A", (), {"output": str(tmp_path / "ref.tsv"), "no_latents": False,
+                          "plot": None})()
+    jax_mcmc._emit_chains(args, type("M", (), {"n_hyper": 1})(), 12,
+                          rng.uniform(1, 2, (2, 5, 1)), rng.normal(size=(2, 5, 12)),
+                          rng.normal(size=(2, 5)))
+    capsys.readouterr()
+    assert list(got.columns) == list(pd.read_csv(args.output, sep="\t").columns)
+    assert len(got) == 10 and np.isfinite(got.to_numpy(float)).all()
+    assert out.splitlines()[0].startswith("ADVI converged: final ELBO ")
+    assert not list(tmp_path.glob("never*"))
+
+
+def test_select_smc_report_matches_jax(tmp_path, capsys):
+    """select --estimator smc: the report's lines as gaplac_tpu's, and both
+    evidences within Monte-Carlo error of gaplac_tpu's."""
+    data = tmp_path / "data.tsv"
+    _write_data(data, 30, 2)
+    argv = ["--platform", "cpu", "select", "--estimator", "smc", "--formulae", "y ~| SqExp(:x)",
+            "y ~| OU(:x)", "--data", str(data), "--particles", "256"]
+    outs = []
+    for fn in (jax_main, main):
+        assert fn(argv) == 0
+        outs.append(capsys.readouterr().out)
+    ref, got = (select_lps(o) for o in outs)
+    assert [s.split(":")[0] for s in outs[1].splitlines()] == \
+        [s.split(":")[0] for s in outs[0].splitlines()]
+    np.testing.assert_allclose(got, ref, atol=0.3)
+
+
+def select_lps(report):
+    return (float(report.split("model 1:")[1].splitlines()[0]),
+            float(report.split("model 2:")[1].splitlines()[0]))

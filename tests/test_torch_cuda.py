@@ -82,6 +82,18 @@ def test_k1_three_dimensional_batch_past_the_blocked_threshold(dev):
     _check_factor(chol_batched_cuda(A), A, chol_batched_plain)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("batch", [512, 37])
+def test_k1_large_batches(dev, batch, dtype):
+    """SMC's particle batch: 512 matrices are many waves of the clusters the
+    card holds at once, and 37 leaves a ragged last wave."""
+    A = _spd((batch, 128, 128), batch, dev)
+    before = _build.counts["K1"]
+    L = chol_batched_cuda(A.to(dtype))
+    assert _build.counts["K1"] == before + 1
+    _check_factor(L, A, chol_batched_plain)
+
+
 @pytest.mark.parametrize("cluster", [8, 16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k1_cluster_sizes(dev, cluster, dtype):
@@ -125,6 +137,22 @@ def test_k2_and_k2b_match_plain(dev, formula, symmetric):
     assert _rel(gram_cuda(ck, p, X1, X2, 0.1), gram_plain(ck, p, X1, X2, 0.1)) < F64_RTOL
     G = torch.as_tensor(rng.normal(size=(3, 45, 45 if symmetric else 17)), device=dev)
     assert _rel(gram_bwd_cuda(ck, p, X1, X2, G), gram_bwd_plain(ck, p, X1, X2, G)) < F64_RTOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k2_at_a_batch_of_512(dev, dtype):
+    """SMC's particle batch, (512, 128, 128): one grid row a particle."""
+    ck = compile_formula(parse_formula("y ~| SqExp(:x)").formula)
+    rng = np.random.default_rng(7)
+    X = torch.as_tensor(rng.uniform(-5, 5, (128, 1)), device=dev)
+    p = torch.as_tensor(rng.uniform(0.5, 3.0, (512, 1)), device=dev)
+    ref = gram_plain(ck, p, X, None, 0.1)
+    K = gram_cuda(ck, p.to(dtype), X.to(dtype), None, 0.1)
+    if dtype == torch.float64:
+        assert _rel(K, ref) < F64_RTOL
+    else:
+        plain = gram_plain(ck, p.float(), X.float(), None, 0.1).double()
+        assert _rel(K.double(), ref) <= max(F32_FACTOR * _rel(plain, ref), F32_FLOOR)
 
 
 def test_k2b_repeats_bit_for_bit(dev):
