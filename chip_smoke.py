@@ -11,7 +11,7 @@ views), checks that a symmetric K2 output equals its transpose and that K2b
 repeats bit for bit and is one CUDA kernel a call, times each (CUDA events,
 the profiler's device time and, for K2 and K2b, the wrapper's host time)
 beside the one PyTorch call that computes the same function where there is
-one, then drives two paths through
+one, then drives four paths through
 the CLI entry point (``gaplac_tpu_torch.cli.main.main``) on the card, the
 kernels' launch counts set to 0 just before each and read just after:
 
@@ -30,7 +30,19 @@ kernels' launch counts set to 0 just before each and read just after:
    at 512 particles (its evidence against a float64 quadrature; K1 and K2 at
    the particle batch, checked and timed there), and ``fitplot``'s component
    posteriors at n = 4096 against the CPU, with the blocked triangular solve
-   timed against ``torch.linalg.solve_triangular`` at the shape it solves.
+   timed against ``torch.linalg.solve_triangular`` at the shape it solves;
+4. the ``--approx rff`` low-rank path at n = 65536, m = 512: ``sample`` (the
+   prior draw, and a posterior draw at 1024 points), ``mcmc`` NUTS and
+   8-chain ChEES (one K1 launch a capacitance factorization and no gram;
+   the posterior mean of l against a float64 quadrature of the same model;
+   its log density and gradient at C = 2 against the CPU; one value+grad at
+   C = 8 profiled), ``select --formulae`` against the CPU, ``select
+   --estimator smc`` at n = 16384 (its evidence against the quadrature),
+   ``predict --mcmc`` over the ChEES chain (its first draws against the
+   CPU), and ``fitplot``'s components at m_total = 2048, whose 2-D
+   capacitance takes the blocked route through K3, against the CPU.  The
+   timing phase adds K1 at the capacitance batch (8, 512, 512) and at
+   (8, 2048, 2048) and (1, 4096, 4096), against ``cholesky_ex``.
 
 Every phase raises on failure; the script exits non-zero on any failure and
 when no CUDA device is available.  Its last line is one JSON object
@@ -66,11 +78,18 @@ OUT_DIR = ROOT / "chip_smoke_out"
 N_OBS = 500
 CHAINS = 8
 TIMING_REPS = 21
+#: calls traced in each profiler window (a measurement traces three windows,
+#: each after a warmup window)
+PROFILE_CALLS = 5
 N_BIG = 4096      # rows of the sample/select/predict path (the dense model's largest)
 N_AT = 1024       # predict's --at points
 PREDICT_CHECK_DRAWS = 4  # chain draws of the predict run held against the CPU
 K3_TILE = 128     # K3's tile (ops/cholesky.py CHOL_TILE)
 K1_CLUSTERS = (8, 16)  # K1's cluster sizes, each checked and timed beside the launcher's choice
+N_RFF = 65536     # rows of path 4, the --approx rff path (gaplac_tpu's low-rank width)
+M_RFF = 512       # its --rff-features
+N_RFF_SMC = 16384  # rows of path 4's select --estimator smc
+M_RFF_FITPLOT = 1024  # fitplot's --rff-features: two leaves, m_total 2048, the blocked route
 DETERMINISM_LAUNCHES = 20
 #: K2/K2b edge shapes of their 32-tiles: rows n of a symmetric gram, and the
 #: columns of a cross gram with n rows (n2 % 4 != 0 takes the scalar path)
@@ -132,6 +151,21 @@ def spd(n: int, seed: int, dev, jitter: float = 1.1) -> torch.Tensor:
     return torch.as_tensor(sqexp_gram(x, np.array([1.5]), jitter)[0], device=dev)
 
 
+def capacitance(B: int, m: int, n: int, dev) -> torch.Tensor:
+    """B capacitance matrices I + Phi^T Phi / 1.1 of path 4's model: SqExp
+    random features (m of them) of n uniform points, lengthscales spread over
+    [1, 2], float64."""
+    rng = np.random.default_rng(13)
+    x = torch.as_tensor(rng.uniform(-5, 5, n), device=dev)
+    w0 = torch.as_tensor(rng.standard_normal(m), device=dev)
+    b0 = torch.as_tensor(rng.uniform(0, 2 * math.pi, m), device=dev)
+    out = []
+    for ls in np.linspace(1.0, 2.0, B):
+        phi = math.sqrt(2.0 / m) * torch.cos(x[:, None] * (w0 / ls) + b0)
+        out.append(torch.eye(m, dtype=phi.dtype, device=dev) + phi.mT @ phi / 1.1)
+    return torch.stack(out)
+
+
 def time_ms(fn) -> float:
     """Median of TIMING_REPS runs, each timed by CUDA events after a warmup."""
     fn()
@@ -147,26 +181,42 @@ def time_ms(fn) -> float:
     return float(np.median(times))
 
 
-def profiled(fn, calls: int):
-    """torch.profiler's key averages over ``calls`` calls of ``fn``, taken in
-    the profiler's second window: the first, of as many calls, is traced and
-    dropped, since the profiler's first window can miss a kernel."""
+def profiled(fn, calls: int, windows: int = 3, attempts: int = 5):
+    """torch.profiler's key averages over ``calls`` calls of ``fn``.  One
+    session traces ``windows`` windows, each after a warmup window of as many
+    calls (a first window can miss a kernel), and the window whose CUDA
+    kernels took the most device time is returned: the profiler on the card
+    drops records now and then (a window of the blocked factorization with 31
+    of its 32 tiles; K2 at a batch of 512 timed below its bound), and never
+    adds any.  A session with no CUDA kernel at all is traced again after a
+    pause, up to ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile, schedule
+
+    def device_total(averages):
+        return sum(e.self_device_time_total for e in averages
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
 
     fn()
     torch.cuda.synchronize()
-    got = []
-    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda p: got.append(p.key_averages())) as prof:
-        for _ in range(2):
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    return got[-1]
+    for _ in range(attempts):
+        got = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=windows),
+                     on_trace_ready=lambda p: got.append(p.key_averages())) as prof:
+            for _ in range(2 * windows):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        best = max(got, key=device_total, default=[])
+        if device_total(best) > 0:
+            return best
+        log("  (the profiler's windows held no CUDA kernel; tracing again)")
+        time.sleep(1.0)
+    raise RuntimeError(f"the profiler recorded no CUDA kernel in {attempts} sessions")
 
 
-def device_ms(fn, calls: int = TIMING_REPS) -> float:
+def device_ms(fn, calls: int = PROFILE_CALLS) -> float:
     """Device time per call of the kernels ``fn`` launches: torch.profiler's
     sum of CUDA kernel (and copy) time over ``calls`` calls after a warmup.
     Unlike time_ms, it leaves out the host's time to reach the launch, which
@@ -480,6 +530,21 @@ def phase_timings(dev):
                                 lambda: chol_batched_plain(A1),
                                 lambda: torch.linalg.cholesky_ex(A1), n ** 3 / 3,
                                 chol_bytes(1, n))
+    # K1 at path 4's capacitance batch, and at batched n >= 2048, where the dense
+    # model's (C, n, n) factorizations go to K1 (the last on the blocked row's matrix)
+    big_k1 = {"K1 (8,512,512)": capacitance(CHAINS, M_RFF, N_RFF, dev),
+              "K1 (8,2048,2048)": torch.as_tensor(
+                  sqexp_gram(rng.uniform(-5, 5, 2048), rng.uniform(1, 2, CHAINS), 1.1),
+                  device=dev),
+              "K1 (1,4096,4096)": B[None].double()}
+    for k, A64 in big_k1.items():
+        A32 = A64.float()
+        check_accuracy(f"{k} float32", chol_batched_cuda(A32), chol_batched_plain(A32),
+                       chol_batched_plain(A64))
+        b, m = A32.shape[:2]
+        rows[k] = (lambda A32=A32: chol_batched_cuda(A32), lambda A32=A32: chol_batched_plain(A32),
+                   lambda A32=A32: torch.linalg.cholesky_ex(A32), b * m ** 3 / 3, chol_bytes(b, m))
+        del A64
     rows.update(gram_rows(ck, p, X, G, pb, Xb))
     rows.update({
         "K3": (lambda: chol_tile_cuda(T), lambda: chol_tile_plain(T),
@@ -637,8 +702,11 @@ def read_table(path, columns, rows):
         raise AssertionError(f"{path.name}: columns {list(df.columns)[:6]}...")
     if len(df) != rows:
         raise AssertionError(f"{path.name}: {len(df)} rows, expected {rows}")
-    if not np.isfinite(df.to_numpy(dtype=float)).all():
-        raise AssertionError(f"{path.name}: non-finite values")
+    finite = np.isfinite(df.to_numpy(dtype=float))
+    if not finite.all():
+        bad = {c: int((~finite[:, i]).sum()) for i, c in enumerate(df.columns)
+               if not finite[:, i].all()}
+        raise AssertionError(f"{path.name}: non-finite values (rows by column: {bad})")
     return df
 
 
@@ -766,7 +834,7 @@ def phase_big_path(dev, chain):
             raise AssertionError(f"select lp of {name} on the card is off by {ek:.3e}")
         select_check[name] = {"card_f32": lps[i], "cpu_f64": ref[i], "plain_f32_cpu": cpu32[i],
                               "plain_f32_card": card32[i], "rel_err": ek, "tol": tol}
-    predict_check = check_predict_path2(chain, predict)
+    predict_check = check_predict(chain, predict)
     return launches, walls, {"select": select_check, "predict": predict_check,
                              "K2": k2_err}
 
@@ -796,29 +864,29 @@ def check_k2_path2(dev, sample_df, pred_df):
     return errs
 
 
-def check_predict_path2(chain, predict):
+def check_predict(chain, predict, label: str = "predict"):
     """predict over the chain's first draws: the card (float32, kernels)
     against the CPU (float64), column by column, with the check_accuracy rule
     over the CPU in float32 and the card through the plain versions."""
     import pandas as pd
 
-    head = OUT_DIR / "chain_head.tsv"
+    head = OUT_DIR / f"{label}_chain_head.tsv"
     pd.read_csv(chain, sep="\t").head(PREDICT_CHECK_DRAWS).to_csv(head, sep="\t", index=False)
     runs = {}
     for tag, flags in (("card", ["--platform", "cuda"]), ("cpu64", ["--platform", "cpu"]),
                        ("cpu32", ["--platform", "cpu", "--precision", "f32"]),
                        ("card_plain", ["--platform", "cuda"])):
-        out = OUT_DIR / f"predict_head_{tag}.tsv"
+        out = OUT_DIR / f"{label}_head_{tag}.tsv"
         with plain_kernels() if tag == "card_plain" else contextlib.nullcontext():
             run_cli([*flags, *predict(head, out)])
         runs[tag] = read_table(out, ["x", "ymu", "yQ050", "yQ950"], N_AT)
     if not all(np.array_equal(r["x"], runs["cpu64"]["x"]) for r in runs.values()):
-        raise AssertionError("predict: the --at points differ between the runs")
+        raise AssertionError(f"{label}: the --at points differ between the runs")
     col = lambda tag, c, dt: torch.tensor(runs[tag][c].to_numpy(), dtype=dt)
     errs = {}
     for c in ("ymu", "yQ050", "yQ950"):
         errs[c] = check_accuracy(
-            f"predict {c}, {PREDICT_CHECK_DRAWS} draws, card f32 against cpu f64",
+            f"{label} {c}, {PREDICT_CHECK_DRAWS} draws, card f32 against cpu f64",
             col("card", c, torch.float32),
             (col("cpu32", c, torch.float32), col("card_plain", c, torch.float32)),
             col("cpu64", c, torch.float64))
@@ -997,7 +1065,7 @@ def phase_laplace(dev):
     ck = compile_formula(spec.formula)
 
     def model(d, dtype):
-        X = torch.as_tensor(x[:, None], dtype=dtype, device=d)
+        X = torch.tensor(x[:, None], dtype=dtype, device=d)
         return build_laplace_marginal(ck, slot_groups_for(ck, ["x"]), X,
                                       torch.as_tensor(yb, dtype=dtype, device=d),
                                       spec.likelihood)
@@ -1057,7 +1125,7 @@ def phase_smc(dev, data):
 
     from gaplac_tpu_torch import parse_formula
     from gaplac_tpu_torch.inference.model import build_model
-    from gaplac_tpu_torch.inference.smc import smc_log_evidence_gp
+    from gaplac_tpu_torch.inference.smc import particle_chunk, smc_log_evidence_gp
     from gaplac_tpu_torch.kernels.covariance import compile_formula
     from gaplac_tpu_torch.ops import _build
 
@@ -1102,7 +1170,7 @@ def phase_smc(dev, data):
     seeded = []
     for seed in range(1, 6):
         res = smc_log_evidence_gp(torch.Generator(device=dev).manual_seed(seed), model, yd,
-                                  n_particles=particles)
+                                  particle_chunk(N_OBS, N_OBS, 4), n_particles=particles)
         if res.final_beta != 1.0:
             raise AssertionError(f"SMC seed {seed} ended at beta {res.final_beta}")
         seeded.append(res.log_evidence)
@@ -1264,6 +1332,518 @@ def phase_fitplot(dev, data):
                       "blocked_solve": {"rel_err": solve_err, **times["blocked solve"]}}
 
 
+# ---------------------------------------------------------------------------
+# path 4: the --approx rff low-rank path
+# ---------------------------------------------------------------------------
+
+RFF_FLAGS = ["--approx", "rff", "--rff-features", str(M_RFF)]
+#: the four runs of the float32 rule: (tag, device, dtype); card_plain runs
+#: with every kernel replaced by its plain version
+RULE_RUNS = (("card", "cuda", torch.float32), ("cpu64", "cpu", torch.float64),
+             ("cpu32", "cpu", torch.float32), ("card_plain", "cuda", torch.float32))
+
+
+def float32_rule(what: str, run) -> dict:
+    """``run(device, dtype)`` -> {part: numbers}, once for each of RULE_RUNS;
+    each part of the card's float32 run held to the CPU's float64 run by
+    check_accuracy, against the float32 runs through the plain versions."""
+    runs = {}
+    for tag, d, dtype in RULE_RUNS:
+        with plain_kernels() if tag == "card_plain" else contextlib.nullcontext():
+            runs[tag] = {k: torch.as_tensor(np.asarray(v.cpu() if torch.is_tensor(v) else v))
+                         for k, v in run(d, dtype).items()}
+    return {part: check_accuracy(
+        f"{what} {part}, card f32 against cpu f64", runs["card"][part].float(),
+        (runs["cpu32"][part].float(), runs["card_plain"][part].float()),
+        runs["cpu64"][part].double()) for part in runs["card"]}
+
+
+def cli_precision(d: str, dtype) -> list:
+    return ["--platform", d, "--precision", "f32" if dtype == torch.float32 else "f64"]
+
+
+def rff_model(x: np.ndarray, y: np.ndarray, d, dtype, m: int = M_RFF):
+    """The mcmc command's rff model of "y ~| SqExp(:x)" (--rff-seed 0)."""
+    from gaplac_tpu_torch import parse_formula
+    from gaplac_tpu_torch.inference.model import build_model
+    from gaplac_tpu_torch.kernels.covariance import compile_formula
+
+    spec = parse_formula("y ~| SqExp(:x)")
+    return build_model(compile_formula(spec.formula), ["x"],
+                       torch.tensor(x[:, None], dtype=dtype, device=d),
+                       torch.tensor(y, dtype=dtype, device=d), spec.likelihood,
+                       approx="rff", rff_features=m)
+
+
+def rff_quadrature(dev, x: np.ndarray, y: np.ndarray, m: int = M_RFF) -> dict:
+    """The posterior of l for "y ~| SqExp(:x)" with --approx rff (the same
+    feature map, --rff-seed 0) under the flat Uniform(0, 20) prior, float64
+    on the card: the port's lowrank_logpdf on a grid of 400 over (0, 20), then
+    three grids of 241 over the mean +- 12 sd (sd at least the last grid's
+    step).  The mean, sd and log evidence from the last grid."""
+    from scipy.special import logsumexp
+
+    from gaplac_tpu_torch import parse_formula
+    from gaplac_tpu_torch.kernels.covariance import compile_formula
+    from gaplac_tpu_torch.kernels.features import build_feature_map
+    from gaplac_tpu_torch.ops.lowrank import lowrank_logpdf
+
+    ck = compile_formula(parse_formula("y ~| SqExp(:x)").formula)
+    X = torch.tensor(x[:, None], dtype=torch.float64, device=dev)
+    yd = torch.tensor(y, dtype=torch.float64, device=dev)
+    fm = build_feature_map(ck, [X], num_features=m, seed=0)
+
+    def lps(grid):
+        g = torch.as_tensor(grid, device=dev)[:, None]
+        return torch.cat([lowrank_logpdf(fm.phi(c, X), 1.1, yd) for c in g.split(8)]).cpu().numpy()
+
+    grid = np.linspace(0.02, 19.98, 400)
+    lp = lps(grid)
+    for _ in range(3):
+        w = np.exp(lp - lp.max())
+        mean = float((grid * w).sum() / w.sum())
+        sd = max(float(np.sqrt(max((grid ** 2 * w).sum() / w.sum() - mean ** 2, 0.0))),
+                 grid[1] - grid[0])
+        grid = np.linspace(max(mean - 12 * sd, 1e-3), min(mean + 12 * sd, 20 - 1e-3), 241)
+        lp = lps(grid)
+    w = np.exp(lp - lp.max())
+    mean = float((grid * w).sum() / w.sum())
+    sd = float(np.sqrt((grid ** 2 * w).sum() / w.sum() - mean ** 2))
+    log_z = float(logsumexp(lp) + math.log(grid[1] - grid[0]) - math.log(20.0))
+    peaks = [i for i in range(1, len(lp) - 1) if lp[i - 1] < lp[i] >= lp[i + 1]]
+    return {"mean": mean, "sd": sd, "log_evidence": log_z, "step": float(grid[1] - grid[0]),
+            "modes": [[float(grid[i]), float(lp[i] - lp.max())] for i in peaks]}
+
+
+def row_block_errors(dev, x, y) -> dict:
+    """What summing the products over the n rows in blocks (ops/lowrank.py
+    ROW_BLOCK) does in float32 on the card, against one product of all the
+    rows: the largest error of the model's log density against float64 over
+    l in [1.2, 2.6], and the least eigenvalue of the capacitance matrix at
+    d = 0.1 (the report's), which is 1 or more in exact arithmetic."""
+    from gaplac_tpu_torch.ops import lowrank
+
+    ls = np.linspace(1.2, 2.6, 57)
+    u = torch.tensor(np.log(ls / 20) - np.log1p(-ls / 20))[:, None]
+    m64, m32 = rff_model(x, y, dev, torch.float64), rff_model(x, y, dev, torch.float32)
+    fm, X = rff_features(dev, x, torch.float32)
+    phi = fm.phi(torch.tensor([[1.5], [2.0], [2.5]], device=dev), X)
+    out = {}
+    blocked = lowrank.rows_matmul
+    with torch.no_grad():
+        ref = torch.cat([m64.logdensity(c.to(dev)) for c in u.split(8)])
+        for name, product in (("blocks", blocked), ("one product", lambda a, b: a.mT @ b)):
+            lowrank.rows_matmul = product
+            try:
+                lp = torch.cat([m32.logdensity(c.to(dev, torch.float32)) for c in u.split(8)])
+                A = torch.eye(M_RFF, device=dev) + lowrank.rows_matmul(phi, phi / 0.1)
+            finally:
+                lowrank.rows_matmul = blocked
+            eig = torch.linalg.eigvalsh(0.5 * (A + A.mT).double())[:, 0]
+            out[name] = {"logdensity_max_abs_err": float((lp.double() - ref).abs().max()),
+                         "capacitance_min_eig_d0.1": eig.tolist()}
+    log(f"  float32 rows in blocks of {lowrank.ROW_BLOCK} against one product, n = {N_RFF}: "
+        + json.dumps(out))
+    return out
+
+
+@contextlib.contextmanager
+def lowrank_chol_counter():
+    """The number of capacitance factorizations (ops/lowrank.py::lowrank_chol
+    calls) inside the block: {"calls": N}."""
+    from gaplac_tpu_torch.ops import lowrank
+
+    seen = {"calls": 0}
+    chol = lowrank.lowrank_chol
+
+    def counted(*a, **kw):
+        seen["calls"] += 1
+        return chol(*a, **kw)
+
+    lowrank.lowrank_chol = counted
+    try:
+        yield seen
+    finally:
+        lowrank.lowrank_chol = chol
+
+
+def phase_rff_data():
+    """Path 4a: the data, sample --approx rff at n = 65536 (a prior draw, no
+    factorization), and a posterior draw at 1024 points (one K1 launch)."""
+    from gaplac_tpu_torch.ops import _build
+
+    log(f"[12] path 4: sample --approx rff --rff-features {M_RFF}, the prior at n = {N_RFF} "
+        f"and a posterior draw at {N_AT} points, on the card")
+    data, post = OUT_DIR / f"data_{N_RFF}.tsv", OUT_DIR / "rff_posterior_draw.tsv"
+    walls, launches = {}, {}
+    for name, argv in (
+        ("sample", ["sample", "y :~| SqExp(:x; l=1.5)", "--at",
+                    f"x = rand(Uniform(-5,5), {N_RFF})", "--seed", "1", "--output", str(data)]),
+        ("sample posterior", ["sample", "y ~| SqExp(:x)", "--data", str(data), "--at",
+                              f"x = rand(Uniform(-5,5), {N_AT})", "--seed", "2", "--output",
+                              str(post)]),
+    ):
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        run_cli(["--platform", "cuda", *argv, *RFF_FLAGS])
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        launches[name] = dict(_build.counts)
+    df = read_table(data, ["x", "y"], N_RFF)
+    read_table(post, ["x", "y"], N_AT)
+    log(f"  walls (s): {walls}; kernel launches {launches}; both tables finite, columns x, y")
+    if any(launches["sample"].values()):
+        raise AssertionError("the rff prior draw launched a kernel; it factors nothing")
+    if launches["sample posterior"] != {"K1": 1, "K2": 0, "K2b": 0, "K3": 0}:
+        raise AssertionError("the rff posterior draw must launch K1 once and nothing else")
+    return launches, walls, df["x"].to_numpy(), df["y"].to_numpy()
+
+
+def phase_rff_mcmc(dev, data, x, y):
+    """Path 4b: mcmc --approx rff at n = 65536, NUTS and 8-chain ChEES: one K1
+    launch a capacitance factorization and no gram; the posterior mean of l
+    against a quadrature; the log density and gradient at C = 2 by the
+    float32 rule; one value+grad at C = 8 profiled."""
+    from gaplac_tpu_torch.inference.hmc import value_and_grad
+    from gaplac_tpu_torch.ops import _build
+
+    log(f"[13] path 4: mcmc --approx rff, n = {N_RFF}, m = {M_RFF}, on the card")
+    capture = _Capture()
+    logging.getLogger().addHandler(capture)
+    base = ["-v", "--platform", "cuda", "mcmc", "y ~| SqExp(:x)", "--data", str(data), "--infer",
+            "x", "--seed", "1", "--no-latents", *RFF_FLAGS]
+    cols = ["iteration", "chain", "ℓ", "lp", "acceptance_rate"]
+    # ChEES extends the NUTS chain (--resume): its first, cold transitions at
+    # n = 65536 shrink the step size to where a trajectory takes 1000
+    # leapfrogs.  The posterior of l has two modes here (the random features'),
+    # so both runs are long enough to cross between them
+    runs = (("nuts", ["--samples", "300", "--warmup", "100"],
+             cols + ["tree_depth", "numerical_error"], 300),
+            ("chees", ["--sampler", "chees", "--chains", str(CHAINS), "--samples", "60",
+                       "--warmup", "30", "--resume", str(OUT_DIR / "rff_nuts.tsv")],
+             cols + ["step_size", "traj_length"], 60 * CHAINS))
+    out, launches = {}, {}
+    try:
+        for name, extra, columns, rows in runs:
+            path = OUT_DIR / f"rff_{name}.tsv"
+            _build.reset_counts()
+            t0 = time.perf_counter()
+            with lowrank_chol_counter() as chols:
+                run_cli([*base, *extra, "--output", str(path)], capture)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[name] = dict(_build.counts)
+            df = read_table(path, columns, rows)
+            rate_line = next(s for s in capture.lines if "transitions/s" in s)
+            summary = next(s for s in capture.lines if s.startswith("ℓ: mean"))
+            out[name] = {"path": path, "wall_s": wall, "ell_mean": float(df["ℓ"].mean()),
+                         "transitions_per_s": float(rate_line.split("transitions/s")[0]
+                                                    .split("(")[-1]),
+                         "summary": summary, "capacitance_factorizations": chols["calls"]}
+            log(f"  {name}: {rate_line}; command wall {wall:.1f} s; {summary}; kernel launches "
+                f"{launches[name]}, capacitance factorizations {chols['calls']}")
+            if launches[name]["K1"] != chols["calls"] or chols["calls"] == 0:
+                raise AssertionError(f"rff {name}: {launches[name]['K1']} K1 launches for "
+                                     f"{chols['calls']} capacitance factorizations")
+            if launches[name]["K2"] or launches[name]["K2b"] or launches[name]["K3"]:
+                raise AssertionError(f"rff {name} launched a gram or tile kernel")
+    finally:
+        logging.getLogger().removeHandler(capture)
+
+    quad = rff_quadrature(dev, x, y)
+    tol = 4 * quad["sd"] / math.sqrt(50)
+    log(f"  quadrature (float64, the same features): mean ℓ {quad['mean']:.5f}, sd "
+        f"{quad['sd']:.5f}, modes (ℓ, log density below the top) {quad['modes']}; tolerance "
+        f"4 sd / sqrt(50) = {tol:.5f}")
+    for name in ("nuts", "chees"):
+        off = abs(out[name]["ell_mean"] - quad["mean"])
+        log(f"  {name}: mean ℓ off the quadrature by {off:.5f}")
+        if not off <= tol:
+            raise AssertionError(f"rff {name}: mean ℓ {out[name]['ell_mean']:.5f} is off the "
+                                 f"quadrature's {quad['mean']:.5f} by more than {tol:.5f}")
+
+    # the log density and its gradient at C = 2, either side of the posterior mean
+    # (2 sd, or half the mean where the posterior is that wide)
+    step = min(2 * quad["sd"], 0.5 * quad["mean"])
+    ls = np.array([quad["mean"] - step, quad["mean"] + step])
+    u2 = np.log(ls / 20) - np.log1p(-ls / 20)
+
+    def density(d, dtype):
+        lp, g = value_and_grad(rff_model(x, y, d, dtype).logdensity)(
+            torch.as_tensor(u2[:, None], dtype=dtype, device=d))
+        return {"log density": lp, "gradient": g}
+
+    errs = float32_rule("rff model at C = 2", density)
+
+    # one value+grad at C = 8: launches, wall, and where the device time goes
+    model = rff_model(x, y, dev, torch.float32)
+    vag = value_and_grad(model.logdensity)
+    u8 = torch.as_tensor(np.linspace(u2[0] - 0.05, u2[1] + 0.05, CHAINS)[:, None],
+                         dtype=torch.float32, device=dev)
+    vag(u8)
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    with torch.no_grad():
+        model.logdensity(u8)
+    torch.cuda.synchronize()
+    per_forward = dict(_build.counts)
+    _build.reset_counts()
+    vag(u8)
+    torch.cuda.synchronize()
+    per_eval = dict(_build.counts)
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        vag(u8)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    eval_ms = float(np.median(walls)) * 1e3
+    profile = device_split(lambda: vag(u8), 3)
+    log(f"  one value+grad at C = {CHAINS}: kernel launches {per_eval} (forward alone "
+        f"{per_forward}); wall {eval_ms:.2f} ms (median of 5); device {profile['device_ms']:.2f} "
+        f"ms in {profile['kernels']} CUDA kernels, busy {profile['device_ms'] / eval_ms:.2f}")
+    for cat, (ms, count) in profile["by_category"].items():
+        log(f"    {cat}: {ms:.3f} ms in {count} kernels")
+    for name, ms, count in profile["top"]:
+        log(f"    {ms:.3f} ms in {count} x {name}")
+    if per_forward != {"K1": 1, "K2": 0, "K2b": 0, "K3": 0} or per_eval["K1"] != 1:
+        raise AssertionError(f"rff evaluation: {per_forward} in a forward pass, {per_eval} in "
+                             f"a value+grad; one K1 launch and no other expected")
+    fm, X = rff_features(dev, x, torch.float32)
+    phi_ms = device_ms(lambda: fm.phi(20 * torch.sigmoid(u8), X), 5)
+    log(f"  the feature map alone (forward, C = {CHAINS}): {phi_ms:.3f} ms of device time")
+    k1_err = check_capacitance(dev, x, u8)
+    for v in out.values():
+        v["path"] = str(v["path"])
+    return launches, {**out, "quadrature": quad, "rel_err": errs, "eval_ms": eval_ms,
+                      "eval_launches": per_eval, "forward_launches": per_forward,
+                      "profile": profile, "feature_map_ms": phi_ms,
+                      "k1_capacitance_err": k1_err, "row_blocks": row_block_errors(dev, x, y)}
+
+
+def rff_features(dev, x: np.ndarray, dtype):
+    """Path 4's feature map ("y ~| SqExp(:x)", m = 512, --rff-seed 0) and its
+    input matrix."""
+    from gaplac_tpu_torch import parse_formula
+    from gaplac_tpu_torch.kernels.covariance import compile_formula
+    from gaplac_tpu_torch.kernels.features import build_feature_map
+
+    ck = compile_formula(parse_formula("y ~| SqExp(:x)").formula)
+    X = torch.tensor(x[:, None], dtype=dtype, device=dev)
+    return build_feature_map(ck, [X], num_features=M_RFF, seed=0), X
+
+
+def check_capacitance(dev, x, u8) -> float:
+    """K1 against its plain version on the capacitance matrices of path 4's
+    model at u8, (8, 512, 512) float32."""
+    from gaplac_tpu_torch.ops.cholesky import chol_batched_cuda, chol_batched_plain
+
+    fm, X = rff_features(dev, x, torch.float64)
+    phi = fm.phi(20 * torch.sigmoid(u8.double()), X)
+    A64 = torch.eye(M_RFF, dtype=torch.float64, device=dev) + phi.mT @ phi / 1.1
+    del phi
+    A32 = A64.float()
+    Lk, Lp = chol_batched_cuda(A32), chol_batched_plain(A32)
+    check_accuracy(f"K1 capacitance ({CHAINS},{M_RFF},{M_RFF}) float32", Lk, Lp,
+                   chol_batched_plain(A64))
+    return float((Lk - Lp).abs().max())
+
+
+def device_split(fn, calls: int) -> dict:
+    """The device time of ``fn``'s CUDA kernels a call (the profiler's second
+    window), by category: the feature map's trigonometry, cuBLAS's GEMMs and
+    triangular solves, K1, and the rest (elementwise and reductions)."""
+    kernels = {e.key: (e.self_device_time_total / 1e3 / calls, e.count // calls)
+               for e in profiled(fn, calls) if e.device_type == torch.autograd.DeviceType.CUDA}
+
+    def category(name):
+        low = name.lower()
+        if "chol_batched" in low:
+            return "K1"
+        if "trsm" in low or "trsv" in low:
+            return "triangular solves"
+        if "gemm" in low or "gemv" in low:
+            return "matmul"
+        if "cos_kernel" in low or "sin_kernel" in low:
+            return "feature map cos/sin"
+        return "other"
+
+    by_cat = {}
+    for name, (ms, count) in kernels.items():
+        c = by_cat.setdefault(category(name), [0.0, 0])
+        c[0] += ms
+        c[1] += count
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"device_ms": sum(ms for ms, _ in kernels.values()),
+            "kernels": sum(c for _, c in kernels.values()),
+            "by_category": {k: tuple(v) for k, v in by_cat.items()},
+            "top": [[name[:100], ms, count] for name, (ms, count) in top]}
+
+
+def phase_rff_select(data):
+    """Path 4c: select --formulae SqExp vs OU --approx rff at n = 65536, by the
+    float32 rule."""
+    from gaplac_tpu_torch.ops import _build
+
+    log(f"[14] path 4: select --formulae --approx rff, n = {N_RFF}, on the card")
+    formulae = ["y ~| SqExp(:x)", "y ~| OU(:x)"]
+    argv = ["select", "--formulae", *formulae, "--data", str(data), *RFF_FLAGS]
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    report = run_cli(["--platform", "cuda", *argv])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.counts)
+    log(f"  command wall {wall:.2f} s; kernel launches {launches}; Log2 Bayes "
+        f"{report.split('**Log2 Bayes**:')[1].splitlines()[0].strip()}")
+    if launches != {"K1": 2, "K2": 0, "K2b": 0, "K3": 0}:
+        raise AssertionError("rff select: one K1 launch a formula and nothing else expected")
+    errs = float32_rule("rff select lp", lambda d, dt: dict(zip(
+        formulae, select_lps(run_cli([*cli_precision(d, dt), *argv])))))
+    return launches, {"wall_s": wall, "rel_err": errs}
+
+
+def phase_rff_smc(dev, data):
+    """Path 4d: select --estimator smc --particles 512 --approx rff at
+    n = 16384: beta reaches 1, Log2 Bayes > 0, the SqExp evidence against a
+    float64 quadrature within max(0.5, 3 sd of five seeded runs)."""
+    import pandas as pd
+
+    from gaplac_tpu_torch.inference.smc import particle_chunk, smc_log_evidence_gp
+    from gaplac_tpu_torch.ops import _build
+
+    particles = 512
+    log(f"[15] path 4: select --estimator smc --particles {particles} --approx rff, "
+        f"n = {N_RFF_SMC}, on the card")
+    df = pd.read_csv(data, sep="\t").head(N_RFF_SMC)
+    small = OUT_DIR / f"data_{N_RFF_SMC}.tsv"
+    df.to_csv(small, sep="\t", index=False)
+    x, y = df["x"].to_numpy(), df["y"].to_numpy()
+    capture = _Capture()
+    logging.getLogger().addHandler(capture)
+    try:
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        with batch_recorder() as seen:
+            report = run_cli(["-v", "--platform", "cuda", "select", "--estimator", "smc",
+                              "--formulae", "y ~| SqExp(:x)", "y ~| OU(:x)", "--data", str(small),
+                              "--particles", str(particles), *RFF_FLAGS], capture)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.counts)
+        lines = list(capture.lines)
+    finally:
+        logging.getLogger().removeHandler(capture)
+    lps = select_lps(report)
+    bayes = float(report.split("**Log2 Bayes**:")[1].splitlines()[0])
+    stages = [s for s in lines if s.startswith("SMC evidence for")]
+    log(f"  command wall {wall:.1f} s; Log2 Bayes {bayes}; {stages}; kernel launches "
+        f"{launches}; K1 batches {sorted(set(seen['K1']))}")
+    if any("stopped at inverse temperature" in s for s in lines) or len(stages) != 2:
+        raise AssertionError("an rff SMC run did not reach beta = 1")
+    if not bayes > 0:
+        raise AssertionError(f"rff SMC Log2 Bayes {bayes} is not > 0")
+    if launches["K2"] or launches["K2b"] or launches["K3"] or not launches["K1"]:
+        raise AssertionError(f"rff SMC: K1 launches only expected, got {launches}")
+
+    model = rff_model(x, y, dev, torch.float32)
+    yd = torch.tensor(y, dtype=torch.float32, device=dev)
+    chunk = particle_chunk(N_RFF_SMC, M_RFF, 4)
+    seeded = []
+    for seed in range(1, 6):
+        res = smc_log_evidence_gp(torch.Generator(device=dev).manual_seed(seed), model, yd, chunk,
+                                  n_particles=particles)
+        if res.final_beta != 1.0:
+            raise AssertionError(f"rff SMC seed {seed} ended at beta {res.final_beta}")
+        seeded.append(res.log_evidence)
+    sd = float(np.std(seeded, ddof=1))
+    quad = rff_quadrature(dev, x, y)
+    tol = max(0.5, 3 * sd)
+    log(f"  SqExp evidence {lps[0]:.4f} (CLI, seed 0) against the float64 quadrature "
+        f"{quad['log_evidence']:.4f}: off by {abs(lps[0] - quad['log_evidence']):.4f} (tolerance "
+        f"{tol:.4f} = max(0.5, 3 x sd {sd:.4f} of seeds 1-5: "
+        f"{', '.join(f'{v:.4f}' for v in seeded)})); {chunk} particles a chunk")
+    if not abs(lps[0] - quad["log_evidence"]) <= tol:
+        raise AssertionError("rff SMC SqExp evidence is off the quadrature")
+    return launches, {"wall_s": wall, "log2_bayes": bayes, "lps": lps, "quadrature": quad,
+                      "seeded": seeded, "sd": sd, "stages": stages, "chunk": chunk,
+                      "k1_batches": sorted(set(seen["K1"]))}
+
+
+def phase_rff_predict(data, chain):
+    """Path 4e: predict --approx rff --mcmc <ChEES chain> at 1024 points, and
+    its first draws by the float32 rule."""
+    from gaplac_tpu_torch.ops import _build
+
+    log(f"[16] path 4: predict --approx rff --mcmc (the ChEES chain), n = {N_RFF}, "
+        f"{N_AT} points, on the card")
+    out = OUT_DIR / "rff_predict.tsv"
+
+    def predict(chain_path, out_path):
+        return ["predict", "y ~| SqExp(:x)", "--data", str(data), "--at",
+                f"x = rand(Uniform(-5,5), {N_AT})", "--seed", "2", "--mcmc", str(chain_path),
+                "--output", str(out_path), *RFF_FLAGS]
+
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    run_cli(["--platform", "cuda", *predict(chain, out)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.counts)
+    df = read_table(out, ["x", "ymu", "yQ050", "yQ950"], N_AT)
+    log(f"  command wall {wall:.2f} s; kernel launches {launches}")
+    if not ((df["yQ050"] <= df["ymu"]) & (df["ymu"] <= df["yQ950"])).all():
+        raise AssertionError("rff predict: ymu outside [yQ050, yQ950]")
+    if launches["K2"] or launches["K2b"] or launches["K3"] or not launches["K1"]:
+        raise AssertionError(f"rff predict: K1 launches only expected, got {launches}")
+    return launches, {"wall_s": wall, "rel_err": check_predict(chain, predict, "rff_predict")}
+
+
+def phase_rff_fitplot(x, y):
+    """Path 4f: fitplot's component posteriors of SqExp + OU with
+    --rff-features 1024 (m_total 2048: the 2-D capacitance takes the blocked
+    route through K3) at n = 65536, by the float32 rule."""
+    import pandas as pd
+
+    from gaplac_tpu_torch import parse_formula
+    from gaplac_tpu_torch.cli.common import design_matrix
+    from gaplac_tpu_torch.cli.fitplot_cmd import lowrank_component_posteriors
+    from gaplac_tpu_torch.kernels.covariance import compile_formula
+    from gaplac_tpu_torch.kernels.features import build_feature_map
+    from gaplac_tpu_torch.ops import _build
+
+    log(f"[17] path 4: fitplot --approx rff --rff-features {M_RFF_FITPLOT}, two leaves, "
+        f"n = {N_RFF}")
+    ck = compile_formula(parse_formula("y ~| SqExp(:x; l=1.5) + OU(:x; l=3)").formula)
+    info = {}
+
+    design = design_matrix(pd.DataFrame({"x": x}), ck)  # a column for each leaf on x
+
+    def components(d, dtype):
+        first = not info  # the card's run, first of RULE_RUNS: timed and counted
+        X = torch.tensor(design, dtype=dtype, device=d)
+        fm = build_feature_map(ck, [X], num_features=M_RFF_FITPLOT, seed=0)
+        if first:
+            _build.reset_counts()
+            t0 = time.perf_counter()
+        got = lowrank_component_posteriors(fm, ck.default_params(dtype, d), X,
+                                           torch.tensor(y, dtype=dtype, device=d), 1.1,
+                                           range(len(ck.terms)))
+        if first:
+            torch.cuda.synchronize()
+            info.update(wall_s=time.perf_counter() - t0, launches=dict(_build.counts),
+                        m_total=fm.m_total)
+        return {f"term {t} {what}": v for t, mu, sd in got
+                for what, v in (("mean", mu), ("sd", sd))}
+
+    errs = float32_rule("rff fitplot component", components)
+    log(f"  card: {info['wall_s']:.2f} s, m_total {info['m_total']}, kernel launches "
+        f"{info['launches']}")
+    if info["launches"]["K3"] <= 0 or info["launches"]["K1"]:
+        raise AssertionError("rff fitplot at m_total 2048 must factor through K3's blocked route")
+    return info.pop("launches"), {**info, "rel_err": errs}
+
+
 def gram_times(dev) -> dict:
     """Only K2 and K2b at phase 5's shapes (``--gram-times``): the wrapper's
     host time, CUDA-event time, the profiler's device time and the bound.
@@ -1309,6 +1889,17 @@ def main() -> int:
     path3_launches["smc"], path3["smc"] = phase_smc(dev, OUT_DIR / "data.tsv")
     path3_launches["fitplot"], path3["fitplot"] = phase_fitplot(dev, OUT_DIR / "data_4096.tsv")
     batch_errs, batch_times = batch_rows(dev)
+    # path 4, each step with the launch counts set to 0 just before it
+    path4_launches, walls4, x4, y4 = phase_rff_data()
+    data4 = OUT_DIR / f"data_{N_RFF}.tsv"
+    path4 = {"sample_walls_s": walls4}
+    mcmc4_launches, path4["mcmc"] = phase_rff_mcmc(dev, data4, x4, y4)
+    path4_launches.update({f"mcmc {k}": v for k, v in mcmc4_launches.items()})
+    path4_launches["select"], path4["select"] = phase_rff_select(data4)
+    path4_launches["select smc"], path4["smc"] = phase_rff_smc(dev, data4)
+    path4_launches["predict"], path4["predict"] = phase_rff_predict(
+        data4, path4["mcmc"]["chees"]["path"])
+    path4_launches["fitplot"], path4["fitplot"] = phase_rff_fitplot(x4, y4)
     kernels = []
     for key, name, src, replaces, err in (
         ("K1", "K1 chol_batched", "gaplac_tpu_torch/csrc/chol_batched.cu",
@@ -1321,7 +1912,8 @@ def main() -> int:
          "gaplac_tpu/ops/cholesky.py:81", k3_err),
     ):
         by_path = {"mcmc": mcmc_launches[key], "sample_select_predict": big_launches[key],
-                   **{f"path3 {k}": v[key] for k, v in path3_launches.items()}}
+                   **{f"path3 {k}": v[key] for k, v in path3_launches.items()},
+                   **{f"path4 {k}": v[key] for k, v in path4_launches.items()}}
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                "launches": sum(by_path.values()), "launches_by_path": by_path,
                "max_abs_err": err, **times[key]}
@@ -1331,6 +1923,11 @@ def main() -> int:
             row["C1"] = times["K1 C=1"]
             row["other_clusters"] = {k: v for k, v in times.items()
                                      if k.startswith("K1") and "cluster" in k}
+            # path 4's capacitance batch, and batched n >= 2048 (the last beside the
+            # blocked route on the same matrix: K3's row, blocked_cholesky_n4096)
+            row["large_shapes"] = {k: times[k] for k in
+                                   ("K1 (8,512,512)", "K1 (8,2048,2048)", "K1 (1,4096,4096)")}
+            row["large_shapes"]["capacitance_max_abs_err"] = path4["mcmc"]["k1_capacitance_err"]
         if key == "K2":
             row["C1"] = times["K2 C=1"]
             row["path2"] = {"max_abs_err": path2_checks["K2"], **times["K2 n=4096"]}
@@ -1352,6 +1949,7 @@ def main() -> int:
         + json.dumps(walls) + "; select, predict: "
         + json.dumps({k: path2_checks[k] for k in ("select", "predict")}))
     log("path 3: " + json.dumps(path3, default=str))
+    log("path 4: " + json.dumps(path4, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,9 @@ are its own copies.
 
 On a CUDA device the dense hot path (gram, its backward, the batched
 Cholesky, the base tile of the blocked Cholesky) runs through the hand-written kernels in ``csrc/``; on the CPU
-the same wrappers run their plain PyTorch versions.
+the same wrappers run their plain PyTorch versions.  The low-rank ``--approx
+rff`` path (``kernels/features.py``, ``ops/lowrank.py``) factors its
+capacitance matrices through the same Cholesky kernels.
 """
 
 __version__ = "0.1.0"

@@ -113,6 +113,9 @@ def chain_slot_groups(ck: CompiledKernel, args):
     from gaplac_tpu_torch.inference.model import slot_groups_for
 
     extras = list(args.infer_extra or [])
+    if extras and args.approx == "rff":
+        raise ValueError("--infer-extra chains cannot be used with --approx rff (feature "
+                         "maps need static shape parameters)")
     if args.infer or extras:
         return slot_groups_for(ck, args.infer or [], shared=args.infer_mode == "shared",
                                infer_extras=extras)

@@ -1,6 +1,6 @@
 """`fitplot` command: the posterior of each additive component of the GP at
 the training inputs (port of ``gaplac_tpu/cli/fitplot_cmd.py`` for
-``--approx none``).
+``--approx none`` and ``rff``).
 
 For an additive kernel K = sum_t K_t with S = K + noise I, component t has
 
@@ -8,8 +8,11 @@ For an additive kernel K = sum_t K_t with S = K + noise I, component t has
     var_t = diag(K_t) - diag(K_t S^-1 K_t),
 
 computed through the dense factorization of S (the blocked route, kernel
-K3, at n >= 2048) and each term's gram (kernel K2).
-``component_posteriors`` returns the numbers and imports no matplotlib;
+K3, at n >= 2048) and each term's gram (kernel K2); with ``--approx rff``
+through the feature map and the Woodbury factorization of S (one m_total x
+m_total capacitance matrix: K1, or K3's blocked route from 2048 on).
+``component_posteriors`` and ``lowrank_component_posteriors`` return the
+numbers and import no matplotlib;
 ``run`` draws one panel a component against its first variable, mean +- 2
 sd.  With --mcmc, the hyperparameters are the chain's posterior means.
 """
@@ -34,7 +37,8 @@ from gaplac_tpu_torch.data import complete_cases, load_tables
 from gaplac_tpu_torch.dsl import parse_formula
 from gaplac_tpu_torch.inference.likelihoods import gaussian_obs_sigma2
 from gaplac_tpu_torch.kernels.covariance import KIND_NAMES, CompiledKernel, compile_formula
-from gaplac_tpu_torch.ops import linalg
+from gaplac_tpu_torch.kernels.features import FeatureMap, build_feature_map
+from gaplac_tpu_torch.ops import linalg, lowrank
 from gaplac_tpu_torch.runtime import Runtime
 
 log = logging.getLogger("gaplac")
@@ -85,9 +89,39 @@ def component_posteriors(ck: CompiledKernel, params: torch.Tensor, X: torch.Tens
     return out
 
 
+def lowrank_component_posteriors(fm: FeatureMap, params: torch.Tensor, X: torch.Tensor,
+                                 y: torch.Tensor, noise: float,
+                                 terms: Sequence[int]) -> List[Tuple[int, np.ndarray, np.ndarray]]:
+    """component_posteriors through the feature map ``fm`` (--approx rff).
+
+    With K = Phi Phi^T + diag(noise_diag) and S = K + noise I, component t is
+    a feature block s (K_t = Phi_s Phi_s^T) or a bare-Noise diagonal term
+    (K_t = diag(d_t)); mu_t and var_t reduce to O(n m |s|) products by
+    Woodbury, and no n x n matrix is formed."""
+    phi = fm.phi(params, X)
+    lr = lowrank.lowrank_chol(phi, noise + fm.noise_diag(params, X))
+    alpha = lowrank.lowrank_solve(lr, y)  # S^-1 y
+    out = []
+    for t in terms:
+        sl = fm.term_slices[t]
+        if sl is None:  # K_t = diag(d_t)
+            d_t = fm.term_diag(params, X, fm.ck.terms[t])
+            # diag(S^-1) = 1/D - rowsum(U^2), U = (D^-1 Phi) R^-T
+            U = linalg.solve_triangular(lr.R, lr.phi_over_d.mT, lower=True).mT
+            s_inv_diag = 1.0 / lr.d - torch.sum(U * U, dim=1)
+            mu_t, var_t = d_t * alpha, d_t - d_t * d_t * s_inv_diag
+        else:
+            phi_s = phi[:, sl[0]:sl[1]]
+            mu_t = phi_s @ lowrank.rows_matmul(phi_s, alpha[:, None])[:, 0]
+            B = lowrank.rows_matmul(phi_s, lowrank.lowrank_solve(lr, phi_s))  # (|s|, |s|)
+            var_t = torch.sum(phi_s * phi_s, dim=1) - torch.sum((phi_s @ B) * phi_s, dim=1)
+        out.append((t, mu_t.cpu().numpy(), np.sqrt(np.maximum(var_t.cpu().numpy(), 0.0))))
+    return out
+
+
 def run(args, rt: Runtime) -> None:
     log.info("running 'fitplot'")
-    refuse_unported([(f"--approx {args.approx}", args.approx != "none")])
+    refuse_unported([(f"--approx {args.approx}", args.approx not in ("none", "rff"))])
     device, dtype = rt
     spec = parse_formula(args.formula)
     ck = compile_formula(spec.formula)
@@ -116,7 +150,11 @@ def run(args, rt: Runtime) -> None:
     terms = wanted_terms(ck, args.component)
     if not terms:
         raise ValueError("No components match --component filter")
-    panels = component_posteriors(ck, params, X, y, args.jitter + sigma2, terms)
+    if args.approx == "rff":
+        fm = build_feature_map(ck, [X], num_features=args.rff_features, seed=args.rff_seed)
+        panels = lowrank_component_posteriors(fm, params, X, y, args.jitter + sigma2, terms)
+    else:
+        panels = component_posteriors(ck, params, X, y, args.jitter + sigma2, terms)
 
     from gaplac_tpu_torch.viz.plots import pyplot
 

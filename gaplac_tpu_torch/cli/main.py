@@ -3,9 +3,10 @@
 
 The five commands (``sample``, ``mcmc``, ``select``, ``predict`` and
 ``fitplot``) are ported on the dense exact model (``--approx none``, and
-``mcmc --approx laplace``), with every sampler and estimator and the flags
-and defaults of ``gaplac_tpu``; the flags whose paths wait raise "not yet
-ported" (``--approx rff|sde|auto``, the ``--sde-*`` knobs, ``--profile``,
+``mcmc --approx laplace``) and on the low-rank feature path (``--approx
+rff``), with every sampler and estimator and the flags and defaults of
+``gaplac_tpu``; the flags whose paths wait raise "not yet ported"
+(``--approx sde|auto``, the ``--sde-*`` knobs, ``--profile``,
 ``--check-numerics``).  The commands run on the card; without one they
 refuse to start unless given ``--platform cpu``.  matplotlib is needed only
 for ``--plot`` and ``fitplot``.
@@ -70,8 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--seed", type=int, default=None, help="PRNG seed")
     ps.add_argument("--jitter", type=float, default=0.1, help="Latent GP noise floor")
     ps.add_argument("--approx", choices=["none", "rff", "sde", "auto"], default="none",
-                    help="none: the dense exact model; rff, sde and auto are not yet "
-                    "ported")
+                    help="none: the dense exact model; rff: random Fourier features, the "
+                    "O(n m^2) low-rank path for large n; sde and auto are not yet ported")
     ps.add_argument("--rff-features", type=int, default=256, metavar="M",
                     help="Features per stationary kernel leaf with --approx rff")
     ps.add_argument("--rff-seed", type=int, default=0)
@@ -122,8 +123,9 @@ def build_parser() -> argparse.ArgumentParser:
     pm.add_argument("--approx", choices=["none", "laplace", "rff", "sde", "auto"],
                     default="none",
                     help="none: the dense exact model; laplace: the Laplace marginal "
-                    "over theta for non-Gaussian likelihoods; rff, sde and auto are "
-                    "not yet ported")
+                    "over theta for non-Gaussian likelihoods; rff: random Fourier "
+                    "features, the O(n m^2) low-rank marginal for large n (Gaussian "
+                    "likelihoods); sde and auto are not yet ported")
     pm.add_argument("--rff-features", type=int, default=256, metavar="M",
                     help="Features per stationary kernel leaf with --approx rff")
     pm.add_argument("--rff-seed", type=int, default=0,
@@ -163,8 +165,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "shape parameters")
     pl.add_argument("--particles", type=int, default=512, help="SMC particle count")
     pl.add_argument("--approx", choices=["none", "rff", "sde", "auto"], default="none",
-                    help="none: the dense exact model; rff, sde and auto are not yet "
-                    "ported")
+                    help="none: the dense exact model; rff: random Fourier features, the "
+                    "O(n m^2) low-rank path for large n; sde and auto are not yet ported")
     pl.add_argument("--rff-features", type=int, default=256, metavar="M",
                     help="Features per stationary kernel leaf with --approx rff")
     pl.add_argument("--rff-seed", type=int, default=0)
@@ -191,8 +193,8 @@ def build_parser() -> argparse.ArgumentParser:
     pp.add_argument("--seed", type=int, default=0)
     pp.add_argument("--jitter", type=float, default=0.1)
     pp.add_argument("--approx", choices=["none", "rff", "sde", "auto"], default="none",
-                    help="none: the dense exact model; rff, sde and auto are not yet "
-                    "ported")
+                    help="none: the dense exact model; rff: random Fourier features, the "
+                    "O(n m^2) low-rank path for large n; sde and auto are not yet ported")
     pp.add_argument("--rff-features", type=int, default=256, metavar="M",
                     help="Features per stationary kernel leaf with --approx rff")
     pp.add_argument("--rff-seed", type=int, default=0)
@@ -221,8 +223,8 @@ def build_parser() -> argparse.ArgumentParser:
     pf.add_argument("--seed", type=int, default=0)
     pf.add_argument("--jitter", type=float, default=0.1)
     pf.add_argument("--approx", choices=["none", "rff", "sde", "auto"], default="none",
-                    help="none: the dense exact model; rff, sde and auto are not yet "
-                    "ported")
+                    help="none: the dense exact model; rff: random Fourier features, the "
+                    "O(n m^2) low-rank path for large n; sde and auto are not yet ported")
     pf.add_argument("--rff-features", type=int, default=256, metavar="M",
                     help="Features per stationary kernel leaf with --approx rff")
     pf.add_argument("--rff-seed", type=int, default=0)

@@ -1,6 +1,7 @@
 """`mcmc` command: posterior over kernel hyperparameters on the dense exact
-model, or on the Laplace marginal with ``--approx laplace`` (port of
-``gaplac_tpu/cli/mcmc_cmd.py``).
+model, on the low-rank feature-space marginal with ``--approx rff``
+(``--rff-features``, ``--rff-seed``), or on the Laplace marginal with
+``--approx laplace`` (port of ``gaplac_tpu/cli/mcmc_cmd.py``).
 
 Same model defaults as the reference (prior Uniform(0,20), latent jitter 0.1,
 obs sigma 1, one shared scalar for all --infer vars), the same chain-table
@@ -57,7 +58,7 @@ def _sync(device: torch.device) -> None:
 def run(args, rt: Runtime) -> None:
     log.info("running 'mcmc'")
     refuse_unported([
-        (f"--approx {args.approx}", args.approx not in ("none", "laplace")),
+        (f"--approx {args.approx}", args.approx not in ("none", "laplace", "rff")),
         ("--check-numerics", args.check_numerics),
     ])
     spec = parse_formula(args.formula)
@@ -93,7 +94,9 @@ def run(args, rt: Runtime) -> None:
         model = build_model(
             ck, inferable, X, y, spec.likelihood, aux=aux, jitter=args.jitter,
             prior_bounds=prior_bounds, shared_hyper=shared,
-            marginalize=not args.no_marginalize, infer_extras=infer_extras,
+            marginalize=not args.no_marginalize,
+            approx="rff" if args.approx == "rff" else "exact",
+            rff_features=args.rff_features, rff_seed=args.rff_seed, infer_extras=infer_extras,
         )
     log.info("model: %s, sampler dim %d, n=%d obs",
              "marginalized" if model.marginalized else "whitened latent", model.dim, y.shape[0])
@@ -350,7 +353,7 @@ def _resume_from_chain(path: str, model, n_chains: int) -> torch.Tensor:
         row = groups[c % len(groups)].iloc[-1]
         theta = row[hyper_cols].to_numpy(dtype=float)
         f = row[fx_cols].to_numpy(dtype=float) if fx_cols else np.zeros((0,))
-        positions.append(model.position_from(torch.as_tensor(theta), torch.as_tensor(f)))
+        positions.append(model.position_from(torch.tensor(theta), torch.tensor(f)))
     return torch.stack(positions)
 
 

@@ -1,12 +1,15 @@
 """`predict` command: posterior predictions at --at/--atdata points (port of
-``gaplac_tpu/cli/predict_cmd.py`` for ``--approx none``).
+``gaplac_tpu/cli/predict_cmd.py`` for ``--approx none`` and ``rff``).
 
 Output: the at-variables plus ``ymu`` (posterior mean of the latent GP) and
 ``yQ050``/``yQ950`` (its 5% and 95% quantiles; with --mcmc, of the
 equal-weight Gaussian mixture over the chain's hyperparameter draws, found by
 bisection on the mixture CDF).  The draws go through one at a time, so only
 one draw's O(n^2) buffers are alive, as ``lax.map`` keeps it in
-``gaplac_tpu``.  ``--plot`` draws the posterior ribbon (``viz/plots.py``).
+``gaplac_tpu``.  With ``--approx rff`` each draw is the weight-space
+posterior through the feature map (O(n m^2), one m x m factorization),
+whose Cat vocabularies span both tables.  ``--plot`` draws the posterior
+ribbon (``viz/plots.py``).
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from gaplac_tpu_torch.data import complete_cases, df_output, load_tables, read_t
 from gaplac_tpu_torch.dsl import build_at_frame, parse_formula
 from gaplac_tpu_torch.inference.likelihoods import gaussian_obs_sigma2
 from gaplac_tpu_torch.kernels.covariance import compile_formula
-from gaplac_tpu_torch.ops import mvn
+from gaplac_tpu_torch.kernels.features import build_feature_map
+from gaplac_tpu_torch.ops import lowrank, mvn
 from gaplac_tpu_torch.runtime import Runtime
 
 log = logging.getLogger("gaplac")
@@ -79,9 +83,19 @@ def predict_one(ck, params, X, Xt, y, jitter: float, sigma2: float):
     return mu, torch.clamp(var, min=1e-12)
 
 
+def lowrank_predict_one(fm, params, X, Xt, y, jitter: float, sigma2: float):
+    """predict_one through the feature map ``fm`` (--approx rff)."""
+    d0 = fm.noise_diag(params, X) + jitter
+    post = lowrank.lowrank_posterior(fm.phi(params, X), d0 + sigma2, y)
+    phi_t = fm.phi(params, Xt)
+    mu = lowrank.lowrank_predict_mean(post, phi_t)
+    var = lowrank.lowrank_predict_var(post, phi_t, fm.noise_diag(params, Xt) + jitter)
+    return mu, torch.clamp(var, min=1e-12)
+
+
 def run(args, rt: Runtime) -> None:
     log.info("running 'predict'")
-    refuse_unported([(f"--approx {args.approx}", args.approx != "none")])
+    refuse_unported([(f"--approx {args.approx}", args.approx not in ("none", "rff"))])
     device, dtype = rt
     spec = parse_formula(args.formula)
     ck = compile_formula(spec.formula)
@@ -110,13 +124,18 @@ def run(args, rt: Runtime) -> None:
     else:
         thetas, slot_groups = np.zeros((1, 0)), ()
 
+    if args.approx == "rff":
+        fm = build_feature_map(ck, [X, Xt], num_features=args.rff_features, seed=args.rff_seed)
+        one = lambda p: lowrank_predict_one(fm, p, X, Xt, y, args.jitter, sigma2)
+    else:
+        one = lambda p: predict_one(ck, p, X, Xt, y, args.jitter, sigma2)
     defaults = ck.default_params(dtype, device)
     mus, variances = [], []
     for theta in thetas:
         p = defaults
         for g, slots in enumerate(slot_groups):
             p = ck.set_params(p, slots, float(theta[g]))
-        mu, var = predict_one(ck, p, X, Xt, y, args.jitter, sigma2)
+        mu, var = one(p)
         mus.append(mu)
         variances.append(var)
     mus = torch.stack(mus).cpu().numpy()

@@ -1,11 +1,14 @@
 """`sample` command: draw from the GP prior, or from the posterior given
 ``--data``, at the ``--at``/``--atdata`` points (port of
-``gaplac_tpu/cli/sample_cmd.py`` for ``--approx none``).
+``gaplac_tpu/cli/sample_cmd.py`` for ``--approx none`` and ``rff``).
 
 The prior draw factors the gram of the sampled points (kernel K2, then the
 blocked factorization through kernel K3 at n >= 2048, else kernel K1); the
 posterior draw conditions on ``--data``, with the hyperparameters of one
-random ``--mcmc`` chain row.  torch's generator gives other numbers than
+random ``--mcmc`` chain row.  With ``--approx rff`` no gram is formed: the
+prior draw is Phi w + sqrt(d) eta, the posterior draw Matheron's rule through
+the feature map, whose Cat vocabularies span both tables (``ops/lowrank.py``,
+one m x m factorization).  torch's generator gives other numbers than
 ``jax.random`` for the same ``--seed``; the draw is the same function of
 its normal variates.  ``--plot`` draws the samples (``viz/plots.py``).
 """
@@ -29,7 +32,8 @@ from gaplac_tpu_torch.data import complete_cases, df_output, load_tables
 from gaplac_tpu_torch.dsl import build_at_frame, parse_formula
 from gaplac_tpu_torch.inference.likelihoods import gaussian_obs_sigma2
 from gaplac_tpu_torch.kernels.covariance import compile_formula
-from gaplac_tpu_torch.ops import mvn
+from gaplac_tpu_torch.kernels.features import build_feature_map
+from gaplac_tpu_torch.ops import lowrank, mvn
 from gaplac_tpu_torch.runtime import Runtime
 
 log = logging.getLogger("gaplac")
@@ -37,7 +41,7 @@ log = logging.getLogger("gaplac")
 
 def run(args, rt: Runtime) -> None:
     log.info("running 'sample'")
-    refuse_unported([(f"--approx {args.approx}", args.approx != "none")])
+    refuse_unported([(f"--approx {args.approx}", args.approx not in ("none", "rff"))])
     spec = parse_formula(args.spec)
     ck = compile_formula(spec.formula)
     if args.atdata:
@@ -55,8 +59,13 @@ def run(args, rt: Runtime) -> None:
         y = _sample_posterior(args, spec, ck, df, params, gen, rt)
     else:
         X = torch.tensor(design_matrix(df, ck), dtype=dtype, device=device)
-        K = ck.gram(params, X, diag=args.jitter)  # K + jitter I
-        y = mvn.sample_mvn_chol(gen, mvn.chol(K))
+        if args.approx == "rff":  # f = Phi w + sqrt(jitter + bare Noise) eta, O(n m)
+            fm = _feature_map(args, ck, [X])
+            y = lowrank.sample_lowrank(gen, fm.phi(params, X),
+                                       fm.noise_diag(params, X) + args.jitter)
+        else:
+            K = ck.gram(params, X, diag=args.jitter)  # K + jitter I
+            y = mvn.sample_mvn_chol(gen, mvn.chol(K))
     df[spec.response] = y.cpu().numpy()
     df_output(df, args.output)
     if args.plot:
@@ -99,8 +108,17 @@ def _sample_posterior(args, spec, ck, tdf, params, gen, rt: Runtime) -> torch.Te
         log.warning("non-Gaussian likelihood %s treated as Gaussian(1) for posterior "
                     "sampling", spec.likelihood.name)
         sigma2 = 1.0
+    if args.approx == "rff":
+        fm = _feature_map(args, ck, [X, Xt])
+        return lowrank.lowrank_conditional_sample_at(
+            gen, fm.phi(params, X), fm.noise_diag(params, X) + args.jitter, sigma2, y,
+            fm.phi(params, Xt), fm.noise_diag(params, Xt) + args.jitter)
     mu, cov = posterior_at(ck, params, X, Xt, y, args.jitter, sigma2)
     return mvn.sample_mvn(gen, cov, mean=mu, jitter=args.jitter)
+
+
+def _feature_map(args, ck, mats):
+    return build_feature_map(ck, mats, num_features=args.rff_features, seed=args.rff_seed)
 
 
 def _plot(args, spec, ck, df, rt: Runtime) -> None:

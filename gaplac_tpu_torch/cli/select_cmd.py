@@ -1,5 +1,5 @@
 """`select` command: model comparison by log2 Bayes factors (port of
-``gaplac_tpu/cli/select_cmd.py`` for ``--approx none``).
+``gaplac_tpu/cli/select_cmd.py`` for ``--approx none`` and ``rff``).
 
 --chains: each model's marginal likelihood is the harmonic mean of 2^lp over
 its chain's ``lp`` (or legacy ``lπ``) column, in log space.
@@ -8,8 +8,10 @@ of each formula on --data (complete cases), through the dense factorization
 (kernel K3's blocked route at n >= 2048); with ``--estimator smc``, a
 tempered-SMC marginal likelihood over the Uniform(0, 20) prior of the
 formula's hyperparameters (``inference/smc.py``; the particles' log
-likelihoods are one batched call through K2 and K1).  Positive values
-favour model 1.
+likelihoods are one batched call through K2 and K1).  With ``--approx rff``
+both take the low-rank feature-space density log N(y; 0, Phi Phi^T + D)
+(``ops/lowrank.py``: the capacitance matrices through K1, or K3's blocked
+route for one of m_total >= 2048).  Positive values favour model 1.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from gaplac_tpu_torch.cli.common import design_matrix, refuse_unported, response
 from gaplac_tpu_torch.data import complete_cases, load_tables, read_table
 from gaplac_tpu_torch.dsl import parse_formula
 from gaplac_tpu_torch.kernels.covariance import LENGTHSCALE_KINDS, compile_formula
-from gaplac_tpu_torch.ops import mvn
+from gaplac_tpu_torch.kernels.features import build_feature_map
+from gaplac_tpu_torch.ops import lowrank, mvn
 from gaplac_tpu_torch.runtime import Runtime
 
 log = logging.getLogger("gaplac")
@@ -49,14 +52,29 @@ def log2_harmonic_mean(lp: np.ndarray) -> float:
     return float(np.log2(len(lp)) - logsumexp(-lp * ln2) / ln2)
 
 
-def fixed_lp(spec, df, jitter: float, rt: Runtime) -> float:
-    """log N(y; 0, K(default params) + jitter I) of one formula on df."""
+def _formula_data(spec, df, rt: Runtime):
+    """The compiled formula, its input matrix and the response on df."""
     device, dtype = rt
     ck = compile_formula(spec.formula)
     y = torch.tensor(response_vector(df, spec), dtype=dtype, device=device)
     X = torch.tensor(design_matrix(df, ck), dtype=dtype, device=device)
-    K = ck.gram(ck.default_params(dtype, device), X, diag=jitter)
+    return ck, X, y
+
+
+def fixed_lp(spec, df, jitter: float, rt: Runtime) -> float:
+    """log N(y; 0, K(default params) + jitter I) of one formula on df."""
+    ck, X, y = _formula_data(spec, df, rt)
+    K = ck.gram(ck.default_params(rt.dtype, rt.device), X, diag=jitter)
     return float(mvn.mvn_logpdf_chol(mvn.chol(K), y))
+
+
+def lowrank_fixed_lp(args, spec, df, rt: Runtime) -> float:
+    """log N(y; 0, Phi Phi^T + (jitter + bare Noise) I) of one formula on df
+    at its default parameters, through the feature map (--approx rff)."""
+    ck, X, y = _formula_data(spec, df, rt)
+    fm = build_feature_map(ck, [X], num_features=args.rff_features, seed=args.rff_seed)
+    p = ck.default_params(rt.dtype, rt.device)
+    return float(lowrank.lowrank_logpdf(fm.phi(p, X), fm.noise_diag(p, X) + args.jitter, y))
 
 
 def run(args, rt: Runtime) -> float:
@@ -76,13 +94,15 @@ def run(args, rt: Runtime) -> float:
         lp1 = log2_harmonic_mean(_read_lp(chains[0]))
         lp2 = log2_harmonic_mean(_read_lp(chains[1]))
     elif formulae:
-        refuse_unported([(f"--approx {args.approx}", args.approx != "none")])
+        refuse_unported([(f"--approx {args.approx}", args.approx not in ("none", "rff"))])
         if not args.data:
             raise ValueError("'select --formulae' requires '--data'")
         spec1, spec2 = parse_formula(formulae[0]), parse_formula(formulae[1])
         df = complete_cases(load_tables(args.data))
         if args.estimator == "smc":
             lp1, lp2 = smc_evidence(args, spec1, df, rt), smc_evidence(args, spec2, df, rt)
+        elif args.approx == "rff":
+            lp1, lp2 = lowrank_fixed_lp(args, spec1, df, rt), lowrank_fixed_lp(args, spec2, df, rt)
         else:
             lp1 = fixed_lp(spec1, df, args.jitter, rt)
             lp2 = fixed_lp(spec2, df, args.jitter, rt)
@@ -105,14 +125,12 @@ def run(args, rt: Runtime) -> float:
 def smc_evidence(args, spec, df, rt: Runtime) -> float:
     """Tempered-SMC log marginal likelihood of one formula, integrating the
     Uniform(0, 20) prior of its --infer (default: every lengthscale-kind
-    leaf, shared) and --infer-extra hyperparameters."""
+    leaf, shared) and --infer-extra hyperparameters; on the dense model, or
+    with --approx rff on the low-rank one."""
     from gaplac_tpu_torch.inference.model import build_model
-    from gaplac_tpu_torch.inference.smc import smc_log_evidence_gp
+    from gaplac_tpu_torch.inference.smc import particle_chunk, smc_log_evidence_gp
 
-    device, dtype = rt
-    ck = compile_formula(spec.formula)
-    y = torch.tensor(response_vector(df, spec), dtype=dtype, device=device)
-    X = torch.tensor(design_matrix(df, ck), dtype=dtype, device=device)
+    ck, X, y = _formula_data(spec, df, rt)
     if args.infer:
         inferable = list(args.infer)
     else:
@@ -125,10 +143,17 @@ def smc_evidence(args, spec, df, rt: Runtime) -> float:
         lp = fixed_lp(spec, df, args.jitter, rt)
         log.info("SMC: %s has no inferable hyperparameter; fixed logpdf %.4f", spec.formula, lp)
         return lp
+    rff = args.approx == "rff"
     model = build_model(ck, inferable, X, y, spec.likelihood, jitter=args.jitter,
-                        infer_extras=infer_extras)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    res = smc_log_evidence_gp(gen, model, y, n_particles=args.particles)
+                        approx="rff" if rff else "exact", rff_features=args.rff_features,
+                        rff_seed=args.rff_seed, infer_extras=infer_extras)
+    # the particles' buffers are (B, n, n) on the dense model, (B, n, m_total) on rff
+    n = y.shape[0]
+    width = (build_feature_map(ck, [X], num_features=args.rff_features,
+                               seed=args.rff_seed).m_total if rff else n)
+    gen = torch.Generator(device=rt.device).manual_seed(args.seed)
+    res = smc_log_evidence_gp(gen, model, y, particle_chunk(n, width, y.element_size()),
+                              n_particles=args.particles)
     name = f"{spec.response} ~| {spec.formula}"
     if res.final_beta < 1.0:
         log.warning(

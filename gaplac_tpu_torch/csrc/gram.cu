@@ -578,15 +578,19 @@ bool read_formula(Formula& f, const int* desc, int L, int NT, int d, int P) {
     f.kind[k] = desc[k];
     f.col[k] = desc[L + k];
     f.extra[k] = desc[2 * L + k];
-    f.term_leaf[k] = desc[3 * L + NT + 1 + k];
-    if (f.kind[k] < K_SQEXP || f.kind[k] > K_RQ || f.col[k] >= d || f.extra[k] >= P ||
-        f.term_leaf[k] < 0 || f.term_leaf[k] >= L)
+    if (f.kind[k] < K_SQEXP || f.kind[k] > K_RQ || f.col[k] >= d || f.extra[k] >= P)
       return false;
   }
   for (int k = 0; k <= NT; ++k) {
     f.term_ptr[k] = desc[3 * L + k];
     if (f.term_ptr[k] < 0 || f.term_ptr[k] > L || (k > 0 && f.term_ptr[k] < f.term_ptr[k - 1]))
       return false;
+  }
+  // the terms' leaf lists hold term_ptr[NT] entries, fewer than L when the
+  // terms leave leaves out (fitplot's one-term grams): read no further
+  for (int k = 0; k < f.term_ptr[NT]; ++k) {
+    f.term_leaf[k] = desc[3 * L + NT + 1 + k];
+    if (f.term_leaf[k] < 0 || f.term_leaf[k] >= L) return false;
   }
   return true;
 }

@@ -2,16 +2,20 @@
 ``gaplac_tpu/inference/model.py``).
 
 Reference model: ℓ ~ Uniform(0, 20); fx ~ GP(kern(ℓ)) at X with jitter 0.1;
-y ~ Normal(fx, 1).  Two formulations, as in ``gaplac_tpu``:
+y ~ Normal(fx, 1).  The formulations, as in ``gaplac_tpu``:
 
 1. ``build_gaussian_marginal``: Gaussian likelihoods integrate the latents
    out, y ~ N(0, K(θ) + (jitter + σ²) I); the sampler runs over θ only.
 2. ``build_latent_whitened``: f = L(θ) z with z ~ N(0, I), sampled over
    v = [u, z]; any likelihood.
+3. ``build_gaussian_marginal_lowrank`` (``approx="rff"``): the marginal of 1
+   with K(θ) replaced by Φ(θ)Φ(θ)ᵀ, Φ the (n, m) feature matrix of
+   ``kernels/features.py``, in O(n m²) (``ops/lowrank.py``).
 
 Every function here is batched over a leading chain axis: ``logdensity``
 maps v (C, dim) to (C,), so one call factors a (C, n, n) batch through
-kernels K1 and K2.  Only ``approx="exact"`` is ported.
+kernels K1 and K2, or for 3 a (C, m, m) capacitance batch through K1.
+``approx="sde"`` is not ported.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from gaplac_tpu_torch.dsl.parser import LikelihoodSpec
 from gaplac_tpu_torch.inference.likelihoods import gaussian_obs_sigma2, make_loglik
 from gaplac_tpu_torch.inference.priors import as_prior
 from gaplac_tpu_torch.kernels.covariance import CompiledKernel
-from gaplac_tpu_torch.ops import linalg, mvn
+from gaplac_tpu_torch.ops import linalg, lowrank, mvn
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -157,6 +161,59 @@ def build_gaussian_marginal(
                    position_from)
 
 
+def build_gaussian_marginal_lowrank(
+    ck: CompiledKernel,
+    slot_groups: Tuple[Tuple[int, ...], ...],
+    X: torch.Tensor,
+    y: torch.Tensor,
+    num_features: int = 256,
+    feature_seed: int = 0,
+    jitter: float = mvn.DEFAULT_JITTER,
+    obs_sigma2: float = 1.0,
+    prior_bounds=DEFAULT_PRIOR_BOUNDS,
+) -> GPModel:
+    """Low-rank collapsed model: θ -> log N(y; 0, Φ(θ)Φ(θ)ᵀ + D(θ)) + prior,
+    D = jitter + bare Noise + σ²; the prior, jitter and σ² of
+    ``build_gaussian_marginal``."""
+    from gaplac_tpu_torch.kernels.features import build_feature_map
+
+    tr = as_prior(prior_bounds)
+    nh = len(slot_groups)
+    dtype, device = X.dtype, X.device
+    params_from = _params_from(ck, slot_groups, dtype, device)
+    fm = build_feature_map(ck, [X], num_features=num_features, seed=feature_seed)
+
+    def _phi_d0(theta):
+        """The features and the latent's prior diagonal d0 = jitter + bare Noise."""
+        p = params_from(theta)
+        return fm.phi(p, X), jitter + fm.noise_diag(p, X)
+
+    def logdensity(u: torch.Tensor) -> torch.Tensor:
+        phi, d0 = _phi_d0(tr.forward(u))
+        return lowrank.lowrank_logpdf(phi, d0 + obs_sigma2, y) + tr.logprior_u(u).sum(-1)
+
+    @torch.no_grad()
+    def report(gen: torch.Generator, u: torch.Tensor):
+        """f ~ p(f | θ, y) exactly by Matheron's rule, and the joint lp of
+        ``build_gaussian_marginal``'s report, all in O(n m²)."""
+        theta = tr.forward(u)
+        phi, d0 = _phi_d0(theta)
+        f = lowrank.lowrank_conditional_sample(gen, phi, d0, obs_sigma2, y)
+        lp = (tr.logprior_x(theta).sum(-1) + lowrank.lowrank_logpdf(phi, d0, f)
+              + torch.sum(-0.5 * ((y - f) ** 2 / obs_sigma2 + math.log(obs_sigma2) + _LOG_2PI),
+                          dim=-1))
+        return theta, f, lp
+
+    def initial_position(gen: torch.Generator, C: int) -> torch.Tensor:
+        return _uniform_init(gen, C, nh, dtype, device)
+
+    def position_from(theta: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+        return tr.inverse(torch.as_tensor(theta, dtype=dtype, device=device))
+
+    return GPModel(nh, nh, logdensity, report, tr.forward, initial_position, True,
+                   position_from)
+
+
 def build_latent_whitened(
     ck: CompiledKernel,
     slot_groups: Tuple[Tuple[int, ...], ...],
@@ -225,15 +282,35 @@ def build_model(
     shared_hyper: bool = True,
     marginalize: bool = True,
     approx: str = "exact",
+    rff_features: int = 256,
+    rff_seed: int = 0,
     infer_extras: Sequence[str] = (),
 ) -> GPModel:
     """The marginal model for Gaussian likelihoods (default), the whitened
-    latent model otherwise; dense exact paths only."""
-    if approx != "exact":
+    latent model otherwise; ``approx="rff"`` takes the low-rank feature-space
+    marginal (Gaussian likelihoods only)."""
+    if approx not in ("exact", "rff"):
         raise NotImplementedError(f"approx={approx!r} is not yet ported to gaplac_tpu_torch "
-                                  "(only the dense exact paths are)")
+                                  "(the dense exact and rff paths are)")
     groups = slot_groups_for(ck, inferable, shared=shared_hyper, infer_extras=infer_extras)
     sigma2 = gaussian_obs_sigma2(likelihood)
+    if approx == "rff":
+        if sigma2 is None:
+            raise ValueError(
+                "--approx rff requires a Gaussian likelihood (the low-rank "
+                "path marginalizes the latents analytically)"
+            )
+        if infer_extras:
+            raise ValueError(
+                "--infer-extra is not supported with --approx rff: the "
+                "feature expansion is drawn from the spectral density at the "
+                "STATIC shape parameters (period/alpha), so they cannot vary "
+                "per density evaluation"
+            )
+        return build_gaussian_marginal_lowrank(
+            ck, groups, X, y, num_features=rff_features, feature_seed=rff_seed,
+            jitter=jitter, obs_sigma2=sigma2, prior_bounds=prior_bounds,
+        )
     if marginalize and sigma2 is not None:
         return build_gaussian_marginal(ck, groups, X, y, jitter=jitter, obs_sigma2=sigma2,
                                        prior_bounds=prior_bounds)

@@ -8,7 +8,7 @@ rejuvenates with random-walk Metropolis steps whose scale follows the
 particles' spread.  The stage loop and the bisection run on the host; the
 particles stay on the device, and each evaluation of the particles' log
 likelihoods is one batched call over the particle axis (through K2 and K1
-for a GP), in chunks when its (B, n, n) buffers would pass
+for a dense GP, K1 for the rff one), in chunks when its buffers would pass
 ``SMC_BATCH_BYTES``.
 """
 
@@ -21,11 +21,13 @@ import numpy as np
 import torch
 from scipy.special import logsumexp
 
-#: the (B, n, n) buffers one batched log-likelihood call over the particles
-#: may hold; more particles than that are evaluated in chunks
+#: the buffers one batched log-likelihood call over the particles may hold;
+#: more particles than that are evaluated in chunks
 SMC_BATCH_BYTES = 4 << 30
-#: (B, n, n) buffers a dense GP log likelihood holds at once (the gram, its
-#: factor, and the factorization's working copy)
+#: (B, n, width) buffers a GP log likelihood holds at once: the dense gram,
+#: its factor and the factorization's working copy (width n), or the rff
+#: model's features, their scaled copy and the feature map's temporary
+#: (width m_total)
 _GP_BUFFERS = 3
 
 
@@ -116,23 +118,23 @@ def run_smc(
     return SMCResult(log_z, parts, stage, beta)
 
 
-def particle_chunk(n: int, itemsize: int) -> int:
+def particle_chunk(n: int, width: int, itemsize: int) -> int:
     """Particles one batched GP log-likelihood call takes at n observations:
-    as many as keep its (B, n, n) buffers within SMC_BATCH_BYTES."""
-    return max(1, SMC_BATCH_BYTES // (_GP_BUFFERS * n * n * itemsize))
+    as many as keep its (B, n, width) buffers within SMC_BATCH_BYTES."""
+    return max(1, SMC_BATCH_BYTES // (_GP_BUFFERS * n * width * itemsize))
 
 
-def smc_log_evidence_gp(gen: torch.Generator, model, y: torch.Tensor, n_particles: int = 512,
-                        **kwargs) -> SMCResult:
+def smc_log_evidence_gp(gen: torch.Generator, model, y: torch.Tensor, chunk: int,
+                        n_particles: int = 512, **kwargs) -> SMCResult:
     """Marginal likelihood of a marginalized GPModel over its unconstrained
     hyperparameters: the prior is the Uniform prior's logit image (logistic
     draws), the log likelihood the model's log density less that prior.
     Only the marginalized (Gaussian) models decompose so.  ``y``, the
-    observations the model conditions on, sizes the particle chunks and
-    gives the draws their dtype and device."""
+    observations the model conditions on, gives the draws their dtype and
+    device; ``chunk`` particles at most go through the model in one call
+    (``particle_chunk`` for the model's buffers)."""
     if not model.marginalized:
         raise ValueError("SMC evidence requires the marginalized (Gaussian) model")
-    chunk = particle_chunk(y.shape[0], y.element_size())
 
     def logprior(u):
         # the uniform prior through the logit transform: -softplus(u) - softplus(-u)

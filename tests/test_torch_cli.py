@@ -119,7 +119,7 @@ def test_jax_checkpoint_resumes_and_port_checkpoint_loads_in_jax(tmp_path, sampl
 
 
 def test_unported_paths_exit_with_error(tmp_path, capsys):
-    """What stays unported: --approx rff/sde/auto on each command,
+    """What stays unported: --approx sde/auto on each command,
     --profile and --check-numerics."""
     data = tmp_path / "data.tsv"
     _write_data(data)
@@ -127,11 +127,11 @@ def test_unported_paths_exit_with_error(tmp_path, capsys):
         assert main(["--platform", "cpu", "mcmc", "y ~| SqExp(:x)", "--data", str(data),
                      "--infer", "x", *extra]) == 2
     for argv in (["predict", "y ~| SqExp(:x)", "--data", str(data), "--at", "x=0:1:2",
-                  "--approx", "rff"],
+                  "--approx", "sde"],
                  ["select", "--formulae", "y ~| SqExp(:x)", "y ~| OU(:x)", "--data", str(data),
                   "--approx", "auto"],
                  ["sample", "y ~| SqExp(:x)", "--at", "x=0:1:2", "--approx", "sde"],
-                 ["fitplot", "y ~| SqExp(:x)", "--data", str(data), "--approx", "rff"],
+                 ["fitplot", "y ~| SqExp(:x)", "--data", str(data), "--approx", "auto"],
                  ["--profile", "sample", "y ~| SqExp(:x)", "--at", "x=0:1:2"]):
         assert main(["--platform", "cpu", *argv]) == 2
     errors = [s for s in capsys.readouterr().err.splitlines() if s.startswith("error:")]

@@ -292,6 +292,51 @@ def test_select_smc_report_matches_jax(tmp_path, capsys):
     np.testing.assert_allclose(got, ref, atol=0.3)
 
 
+def test_mcmc_chees_rff_table_matches_jax(tmp_path):
+    """--approx rff: 8 lockstep ChEES chains on the low-rank marginal,
+    --no-latents, through both CLIs: the chain table's columns are
+    gaplac_tpu's (tests/test_lowrank.py::test_cli_mcmc_chees_rff_composes)."""
+    rng = np.random.default_rng(9)
+    data = tmp_path / "d.tsv"
+    x = rng.uniform(-5, 5, 40)
+    pd.DataFrame({"x": x, "y": np.sin(x)}).to_csv(data, sep="\t", index=False)
+    tables = []
+    for tag, fn in (("jax", jax_main), ("torch", main)):
+        path = tmp_path / f"chees_{tag}.tsv"
+        assert fn(["--platform", "cpu", "mcmc", "y ~| SqExp(:x)", "--data", str(data), "--infer",
+                   "x", "--samples", "5", "--warmup", "10", "--sampler", "chees", "--chains",
+                   "8", "--no-latents", "--approx", "rff", "--rff-features", "24",
+                   "--output", str(path)]) == 0
+        tables.append(pd.read_csv(path, sep="\t"))
+    ref, got = tables
+    assert list(got.columns) == list(ref.columns) == [
+        "iteration", "chain", "ℓ", "lp", "acceptance_rate", "step_size", "traj_length"]
+    assert got["chain"].nunique() == 8 and len(got) == len(ref) == 40
+    assert np.isfinite(got.to_numpy(float)).all()
+
+
+def test_mcmc_rff_hmc_segments_and_advi(tmp_path, capsys):
+    """--approx rff composes with --sampler hmc (the --segments run writes
+    the whole run's table byte for byte) and --sampler advi."""
+    rng = np.random.default_rng(10)
+    data = tmp_path / "d.tsv"
+    x = rng.uniform(-5, 5, 30)
+    pd.DataFrame({"x": x, "y": np.sin(x) + 0.3 * rng.normal(size=30)}).to_csv(
+        data, sep="\t", index=False)
+    argv = ["y ~| SqExp(:x)", "--data", str(data), "--infer", "x", "--no-latents", "--approx",
+            "rff", "--rff-features", "16", "--chains", "2", "--samples", "4"]
+    hmc = ["--sampler", "hmc", "--leapfrogs", "3", "--warmup", "4"]
+    whole, _ = _mcmc_table(main, tmp_path, "hmc", argv + hmc, capsys)
+    seg, _ = _mcmc_table(main, tmp_path, "hmc_seg", argv + hmc + ["--segments", "2"], capsys)
+    assert (tmp_path / "hmc_seg.tsv").read_bytes() == (tmp_path / "hmc.tsv").read_bytes()
+    assert list(whole.columns) == ["iteration", "chain", "ℓ", "lp", "acceptance_rate",
+                                   "step_size"]
+    advi, out = _mcmc_table(main, tmp_path, "advi", argv + ["--sampler", "advi", "--vi-steps",
+                                                             "20"], capsys)
+    assert list(advi.columns) == ["iteration", "chain", "ℓ", "lp"] and len(advi) == 8
+    assert np.isfinite(advi.to_numpy(float)).all() and out.startswith("ADVI converged")
+
+
 def select_lps(report):
     return (float(report.split("model 1:")[1].splitlines()[0]),
             float(report.split("model 2:")[1].splitlines()[0]))

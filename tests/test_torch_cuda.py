@@ -139,6 +139,30 @@ def test_k2_and_k2b_match_plain(dev, formula, symmetric):
     assert _rel(gram_bwd_cuda(ck, p, X1, X2, G), gram_bwd_plain(ck, p, X1, X2, G)) < F64_RTOL
 
 
+def test_k2_and_k2b_for_one_term_of_a_formula(dev):
+    """A formula cut to one of its terms (fitplot's term grams): the
+    descriptor's leaf list holds fewer entries than the formula has leaves,
+    and the kernels read no further."""
+    from gaplac_tpu_torch.kernels.covariance import CompiledKernel
+
+    ck = compile_formula(parse_formula(
+        "y ~| SqExp(:t) * Cat(:g) + Linear(:x) + OU(:t2) + Noise").formula)
+    rng = np.random.default_rng(2)
+    X = rng.normal(size=(40, 4))
+    X[:, 1] = np.floor(np.abs(X[:, 1]) * 2)
+    X = torch.as_tensor(X, device=dev)
+    p = ck.default_params(torch.float64, dev)[None].contiguous()
+    G = torch.as_tensor(rng.normal(size=(1, 40, 40)), device=dev)
+    for term in ck.terms:
+        sub = CompiledKernel(ck.varnames, ck.kinds, ck.cols, (term,), ck.defaults, ck.leaf_vars,
+                             ck.extras)
+        for _ in range(20):
+            assert _rel(gram_cuda(sub, p, X, None, 0.0), gram_plain(sub, p, X, None, 0.0)) \
+                < F64_RTOL
+        assert _rel(gram_bwd_cuda(sub, p, X, None, G), gram_bwd_plain(sub, p, X, None, G)) \
+            < F64_RTOL
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k2_at_a_batch_of_512(dev, dtype):
     """SMC's particle batch, (512, 128, 128): one grid row a particle."""

@@ -165,7 +165,7 @@ def test_smc_gp_evidence_vs_quadrature():
     model = build_model(compile_formula(spec.formula), ["x"], torch.as_tensor(x[:, None]),
                         torch.as_tensor(y), spec.likelihood)
     res = smc.smc_log_evidence_gp(torch.Generator().manual_seed(0), model, torch.as_tensor(y),
-                                 n_particles=512)
+                                 smc.particle_chunk(30, 30, 8), n_particles=512)
     ls = np.linspace(1e-3, 20 - 1e-3, 400)
     d2 = (x[:, None] - x[None, :]) ** 2
     S = np.exp(-d2[None] / (2 * ls[:, None, None] ** 2)) + 1.1 * np.eye(30)
@@ -191,12 +191,12 @@ def test_smc_evaluates_particles_in_chunks(monkeypatch):
                                  "logdensity": lambda u: sizes.append(len(u)) or ld(u)})
     kwargs = dict(n_particles=40, max_stages=2, rejuvenation_steps=1)
     whole = smc.smc_log_evidence_gp(torch.Generator().manual_seed(3), chunked,
-                                   torch.as_tensor(y), **kwargs)
+                                   torch.as_tensor(y), smc.particle_chunk(12, 12, 8), **kwargs)
     assert set(sizes) == {40}
     monkeypatch.setattr(smc, "SMC_BATCH_BYTES", 3 * 12 * 12 * 8 * 16)
     sizes.clear()
     parts = smc.smc_log_evidence_gp(torch.Generator().manual_seed(3), chunked,
-                                   torch.as_tensor(y), **kwargs)
+                                   torch.as_tensor(y), smc.particle_chunk(12, 12, 8), **kwargs)
     assert set(sizes) == {16, 8}
     assert parts.log_evidence == pytest.approx(whole.log_evidence, rel=1e-12)
     assert torch.allclose(parts.particles, whole.particles, rtol=1e-12, atol=0)
