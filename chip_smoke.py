@@ -11,7 +11,7 @@ views), checks that a symmetric K2 output equals its transpose and that K2b
 repeats bit for bit and is one CUDA kernel a call, times each (CUDA events,
 the profiler's device time and, for K2 and K2b, the wrapper's host time)
 beside the one PyTorch call that computes the same function where there is
-one, then drives four paths through
+one, then drives five paths through
 the CLI entry point (``gaplac_tpu_torch.cli.main.main``) on the card, the
 kernels' launch counts set to 0 just before each and read just after:
 
@@ -42,7 +42,28 @@ kernels' launch counts set to 0 just before each and read just after:
    CPU), and ``fitplot``'s components at m_total = 2048, whose 2-D
    capacitance takes the blocked route through K3, against the CPU.  The
    timing phase adds K1 at the capacitance batch (8, 512, 512) and at
-   (8, 2048, 2048) and (1, 4096, 4096), against ``cholesky_ex``.
+   (8, 2048, 2048) and (1, 4096, 4096), against ``cholesky_ex``;
+5. the ``--approx sde`` state-space path, which has no kernel of its own
+   (its scans are PyTorch's operations), and ``--approx auto``: ``sample``
+   (prior, and a posterior draw) and ``mcmc "y ~| OU(:x)"`` NUTS and 8-chain
+   ChEES extending it at n = 2^20 (the mean of l against a float64
+   quadrature); the sde OU marginal against the dense one through K2, K1
+   and K2b at n = 4096, C = 8; SqExp (d = 6) at n = 2^17 through
+   ``sample``, ``mcmc`` (the accuracy guard), ``select --formulae`` and
+   ``select --estimator smc`` on its first 16384 rows (against a
+   quadrature); the quasi-periodic Periodic * Matern32 block (d = 42):
+   ``sample`` and one report at n = 16384, ``predict`` at n = 2^17
+   (windowed by default) and at 16384 windowed against monolithic; the
+   Bernoulli Laplace marginal and the whitened model at n = 2^16; the
+   longitudinal ``OU(:t)*Cat(:PersonID) + Cat(:PersonID) + Noise`` through
+   ``sample``, ``mcmc`` and ``fitplot``'s numbers; ``--approx auto`` at
+   n = 4096 (dense: K2 and K3's blocked route in ``select``, K1, K2, K2b in
+   ``mcmc``) and 2^17 (sde).  Every value+grad and command number is held
+   by the float32 rule against float64 on the CPU (the CPU's float32 run is
+   the plain run), the Laplace and whitened HMC runs must accept, and the
+   OU, SqExp (C = 8) and quasi-periodic
+   (C = 1) value+grad are profiled: wall, device time by op, launches and
+   peak memory.
 
 Every phase raises on failure; the script exits non-zero on any failure and
 when no CUDA device is available.  Its last line is one JSON object
@@ -55,6 +76,17 @@ the tables go to ``chip_smoke_out/``.
 times only K2 and K2b at the timed shapes (the wrapper's host time, events,
 the profiler's device time); copied into another checkout's root, the
 script times that checkout's kernels the same way.
+
+    python3 chip_smoke.py --sde-probes
+
+measures two choices of the sde path on the card: the quasi-periodic
+value+grad (d = 42, n = 16384, C = 1) with the combines' ``solve_ex``
+against ``torch.linalg.solve`` (which waits for the card to report
+singular members), in the order ex, solve, solve, ex; and SqExp
+(d = 6) at n = 2^17 from float32 data with its steps in float64 (as
+shipped) against float32 steps in the modal basis and in one scaled to unit
+variance per mode: the filter's least eigenvalue, the value+grad against
+float64, and whether a report's draws are finite.
 """
 
 from __future__ import annotations
@@ -1343,19 +1375,22 @@ RULE_RUNS = (("card", "cuda", torch.float32), ("cpu64", "cpu", torch.float64),
              ("cpu32", "cpu", torch.float32), ("card_plain", "cuda", torch.float32))
 
 
-def float32_rule(what: str, run) -> dict:
-    """``run(device, dtype)`` -> {part: numbers}, once for each of RULE_RUNS;
-    each part of the card's float32 run held to the CPU's float64 run by
-    check_accuracy, against the float32 runs through the plain versions."""
-    runs = {}
-    for tag, d, dtype in RULE_RUNS:
+def float32_rule(what: str, run, runs=RULE_RUNS) -> dict:
+    """``run(device, dtype)`` -> {part: numbers}, once for each of ``runs``;
+    each part of the card's float32 run held to the float64 run by
+    check_accuracy, against the other float32 runs (card_plain runs with
+    every kernel replaced by its plain version)."""
+    out = {}
+    for tag, d, dtype in runs:
         with plain_kernels() if tag == "card_plain" else contextlib.nullcontext():
-            runs[tag] = {k: torch.as_tensor(np.asarray(v.cpu() if torch.is_tensor(v) else v))
-                         for k, v in run(d, dtype).items()}
+            out[tag] = {k: torch.as_tensor(np.asarray(v.detach().cpu() if torch.is_tensor(v) else v))
+                        for k, v in run(d, dtype).items()}
+    ref = next(tag for tag, _, dtype in runs if dtype == torch.float64)
+    plains = [tag for tag, _, dtype in runs if dtype == torch.float32 and tag != "card"]
     return {part: check_accuracy(
-        f"{what} {part}, card f32 against cpu f64", runs["card"][part].float(),
-        (runs["cpu32"][part].float(), runs["card_plain"][part].float()),
-        runs["cpu64"][part].double()) for part in runs["card"]}
+        f"{what} {part}, card f32 against {ref}", out["card"][part].float(),
+        tuple(out[t][part].float() for t in plains), out[ref][part].double())
+        for part in out["card"]}
 
 
 def cli_precision(d: str, dtype) -> list:
@@ -1649,17 +1684,21 @@ def check_capacitance(dev, x, u8) -> float:
     return float((Lk - Lp).abs().max())
 
 
-def device_split(fn, calls: int) -> dict:
-    """The device time of ``fn``'s CUDA kernels a call (the profiler's second
-    window), by category: the feature map's trigonometry, cuBLAS's GEMMs and
-    triangular solves, K1, and the rest (elementwise and reductions)."""
+def device_split(fn, calls: int, windows: int = 3) -> dict:
+    """The device time of ``fn``'s CUDA kernels a call (the profiler's
+    fullest window), by category: the feature map's trigonometry, cuBLAS's
+    GEMMs and triangular solves, batched LU (the sde path's solves and
+    their row swaps), K1, and the rest (elementwise and reductions)."""
     kernels = {e.key: (e.self_device_time_total / 1e3 / calls, e.count // calls)
-               for e in profiled(fn, calls) if e.device_type == torch.autograd.DeviceType.CUDA}
+               for e in profiled(fn, calls, windows)
+               if e.device_type == torch.autograd.DeviceType.CUDA}
 
     def category(name):
         low = name.lower()
         if "chol_batched" in low:
             return "K1"
+        if "getrf" in low or "getrs" in low or "laswp" in low or "displace_pointers" in low:
+            return "batched LU"
         if "trsm" in low or "trsv" in low:
             return "triangular solves"
         if "gemm" in low or "gemv" in low:
@@ -1844,6 +1883,629 @@ def phase_rff_fitplot(x, y):
     return info.pop("launches"), {**info, "rel_err": errs}
 
 
+# ---------------------------------------------------------------------------
+# path 5: the --approx sde state-space path and --approx auto
+# ---------------------------------------------------------------------------
+
+N_OU = 1 << 20        # rows of the OU path (gaplac_tpu's bench_sde.py width)
+N_SQEXP = 1 << 17     # rows of the SqExp (d = 6) path
+N_QP = 16384          # rows of the quasi-periodic d = 42 gradient (bench_sde.py)
+N_QP_PREDICT = 1 << 17  # rows of the quasi-periodic predict (bench_sde_predict.py)
+N_NONGAUSS = 1 << 16  # rows of the Laplace and whitened models
+N_SMC_CUT = 16384     # rows of select --estimator smc --approx sde (a cut, below)
+PERSONS, VISITS = 4096, 16  # the longitudinal set: 65536 rows
+SDE = ["--approx", "sde"]
+QP_FORMULA = "y ~| Periodic(:x; p=3.0) * Matern32(:x)"
+LONGITUDINAL = "y ~| OU(:t)*Cat(:PersonID) + Cat(:PersonID) + Noise"
+#: the float32 rule of path 5: RULE_RUNS without card_plain, since no kernel
+#: of the port is on the sde path (the CPU's float32 run is its plain run)
+SDE_RULE_RUNS = tuple(r for r in RULE_RUNS if r[0] != "card_plain")
+
+
+def sde_model(formula: str, x: np.ndarray, y: np.ndarray, d, dtype, infer=("x",), **kw):
+    """build_model(..., approx="sde") of a one-variable formula on (x, y);
+    every leaf on x reads its own copy of the column."""
+    from gaplac_tpu_torch import parse_formula
+    from gaplac_tpu_torch.inference.model import build_model
+    from gaplac_tpu_torch.kernels.covariance import compile_formula
+
+    spec = parse_formula(formula)
+    ck = compile_formula(spec.formula)
+    X = torch.tensor(np.repeat(np.asarray(x, float)[:, None], len(ck.varnames), 1),
+                     dtype=dtype, device=d)
+    return build_model(ck, list(infer), X, torch.tensor(y, dtype=dtype, device=d),
+                       spec.likelihood, approx=kw.pop("approx", "sde"), **kw)
+
+
+def logit_l(ls) -> np.ndarray:
+    """The sampler's coordinate u of lengthscales l under Uniform(0, 20)."""
+    ls = np.asarray(ls, float)
+    return np.log(ls / 20) - np.log1p(-ls / 20)
+
+
+def profile_vg(name: str, model, u: torch.Tensor, reps: int = 5, windows: int = 3) -> dict:
+    """One value+grad of ``model`` at u on the card: its wall (median of
+    ``reps`` after a warmup), peak memory, CUDA launches and device time by
+    op (the profiler's fullest of ``windows``), and the port's kernel launches."""
+    from gaplac_tpu_torch.inference.hmc import value_and_grad
+    from gaplac_tpu_torch.ops import _build
+
+    vag = value_and_grad(model.logdensity)
+    vag(u)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        vag(u)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = {k: v // reps for k, v in _build.counts.items()}
+    peak = torch.cuda.max_memory_allocated()
+    wall = float(np.median(walls)) * 1e3
+    prof = device_split(lambda: vag(u), 1, windows)
+    log(f"  {name}: wall {wall:.2f} ms (median of {reps}); device {prof['device_ms']:.2f} ms in "
+        f"{prof['kernels']} CUDA kernels, busy {prof['device_ms'] / wall:.2f}; peak memory "
+        f"{peak / 2**30:.3f} GiB; the port's kernels {launches}")
+    for cat, (ms, count) in prof["by_category"].items():
+        log(f"    {cat}: {ms:.3f} ms in {count} kernels")
+    for kname, ms, count in prof["top"]:
+        log(f"    {ms:.3f} ms in {count} x {kname}")
+    return {"wall_ms": wall, "peak_bytes": peak, "launches": launches, **prof}
+
+
+def sde_quadrature(dev, formula: str, x, y, lo: float = 0.02, hi: float = 19.98) -> dict:
+    """The posterior of l for ``formula`` (--approx sde, the flat
+    Uniform(0, 20) prior) in float64 on the card: the model's log density on
+    a grid of 400 over (lo, hi), then three grids of 241 over the mean +- 12
+    sd.  The mean, sd and log evidence from the last grid."""
+    from scipy.special import logsumexp
+
+    model = sde_model(formula, x, y, dev, torch.float64)
+
+    def lps(grid):
+        u = torch.as_tensor(logit_l(grid), device=dev)[:, None]
+        with torch.no_grad():
+            # less the prior's density in u: the log likelihood at l
+            lp = torch.cat([model.logdensity(c) for c in u.split(8)])
+            prior = -torch.nn.functional.softplus(u[:, 0]) - torch.nn.functional.softplus(-u[:, 0])
+        return (lp - prior).cpu().numpy()
+
+    grid = np.linspace(lo, hi, 400)
+    lp = lps(grid)
+    for _ in range(3):
+        w = np.exp(lp - lp.max())
+        mean = float((grid * w).sum() / w.sum())
+        sd = max(float(np.sqrt(max((grid ** 2 * w).sum() / w.sum() - mean ** 2, 0.0))),
+                 grid[1] - grid[0])
+        grid = np.linspace(max(mean - 12 * sd, 1e-3), min(mean + 12 * sd, 20 - 1e-3), 241)
+        lp = lps(grid)
+    w = np.exp(lp - lp.max())
+    mean = float((grid * w).sum() / w.sum())
+    sd = float(np.sqrt(max((grid ** 2 * w).sum() / w.sum() - mean ** 2, 0.0)))
+    log_z = float(logsumexp(lp) + math.log(grid[1] - grid[0]) - math.log(20.0))
+    return {"mean": mean, "sd": sd, "log_evidence": log_z}
+
+
+def timed_cli(argv, capture=None) -> tuple:
+    """run_cli with the launch counts set to 0 just before: (stdout, wall s,
+    the port's kernel launches)."""
+    from gaplac_tpu_torch.ops import _build
+
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    out = run_cli(argv, capture)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(_build.counts)
+
+
+def no_kernels(tag: str, launches: dict) -> None:
+    if any(launches.values()):
+        raise AssertionError(f"{tag} launched a kernel of the port ({launches}); the sde "
+                             "path has none")
+
+
+def mcmc_runs(name_runs, base, capture) -> dict:
+    """mcmc runs through the CLI, each held to its table's columns and rows:
+    {name: wall, rate, summary, launches, mean l}."""
+    out = {}
+    for name, extra, columns, rows, path in name_runs:
+        stdout, wall, launches = timed_cli([*base, *extra, "--output", str(path)], capture)
+        df = read_table(path, columns, rows)
+        rate_line = next(s for s in capture.lines if "transitions/s" in s)
+        summary = next((s for s in capture.lines if s.startswith("ℓ: mean")), "")
+        out[name] = {"wall_s": wall, "launches": launches, "ell_mean": float(df["ℓ"].mean()),
+                     "acceptance_mean": (float(df["acceptance_rate"].mean())
+                                         if "acceptance_rate" in df else None),
+                     "transitions_per_s": float(rate_line.split("transitions/s")[0].split("(")[-1]),
+                     "summary": summary, "stdout": stdout}
+        log(f"  {name}: {rate_line}; command wall {wall:.1f} s; {summary}; kernel launches "
+            f"{launches}")
+    return out
+
+
+def phase_sde_ou(dev):
+    """Path 5a: sample --approx sde at n = 2^20 (the prior, and a posterior
+    draw at 1024 points); mcmc "y ~| OU(:x)" NUTS, then 8-chain ChEES
+    extending it, the mean of l against a float64 quadrature; the model's
+    value+grad at C = 2 by the float32 rule and at C = 8 profiled."""
+    import pandas as pd
+
+    from gaplac_tpu_torch.inference.hmc import value_and_grad
+
+    log(f"[18] path 5: sample and mcmc --approx sde, OU, n = {N_OU}, on the card")
+    data = OUT_DIR / f"data_ou_{N_OU}.tsv"
+    post = OUT_DIR / "sde_posterior_draw.tsv"
+    walls, launches = {}, {}
+    for name, argv in (
+        ("sample", ["sample", "y :~| OU(:x; l=3.0)", "--at",
+                    f"x = rand(Uniform(0,2000), {N_OU})", "--seed", "1", "--output", str(data)]),
+        ("sample posterior", ["sample", "y ~| OU(:x)", "--data", str(data), "--at",
+                              f"x = rand(Uniform(0,2000), {N_AT})", "--seed", "2", "--output",
+                              str(post)]),
+    ):
+        _, walls[name], launches[name] = timed_cli(["--platform", "cuda", *argv, *SDE])
+        no_kernels(f"sde {name}", launches[name])
+    df = read_table(data, ["x", "y"], N_OU)
+    read_table(post, ["x", "y"], N_AT)
+    log(f"  walls (s): {walls}; both tables finite, columns x, y")
+    x, y = df["x"].to_numpy(), df["y"].to_numpy()
+
+    capture = _Capture()
+    logging.getLogger().addHandler(capture)
+    base = ["-v", "--platform", "cuda", "mcmc", "y ~| OU(:x)", "--data", str(data), "--infer",
+            "x", "--seed", "1", "--no-latents", *SDE]
+    cols = ["iteration", "chain", "ℓ", "lp", "acceptance_rate"]
+    nuts_path = OUT_DIR / "sde_ou_nuts.tsv"
+    try:
+        # ChEES extends the NUTS chain (--resume): from a cold start at this n
+        # its first transitions diverge (path 4).  The posterior is narrow, so
+        # the cold NUTS warmup's trees are capped at depth 6
+        runs = mcmc_runs((
+            ("nuts", ["--samples", "60", "--warmup", "40", "--max-depth", "6"],
+             cols + ["tree_depth", "numerical_error"], 60, nuts_path),
+            ("chees", ["--sampler", "chees", "--chains", str(CHAINS), "--samples", "20",
+                       "--warmup", "20", "--resume", str(nuts_path)],
+             cols + ["step_size", "traj_length"], 20 * CHAINS, OUT_DIR / "sde_ou_chees.tsv"),
+        ), base, capture)
+    finally:
+        logging.getLogger().removeHandler(capture)
+    for name, r in runs.items():
+        launches[f"mcmc {name}"] = r.pop("launches")
+        no_kernels(f"sde mcmc {name}", launches[f"mcmc {name}"])
+
+    quad = sde_quadrature(dev, "y ~| OU(:x)", x, y, 0.5, 19.5)
+    log(f"  quadrature (float64): mean ℓ {quad['mean']:.5f}, sd {quad['sd']:.5f}")
+    for name, r in runs.items():
+        # the tolerance, 4 sd / sqrt(ESS), takes the run's own ESS estimate
+        ess = float(r["summary"].split("ESS")[1])
+        ess = ess if math.isfinite(ess) and ess >= 1 else 1.0
+        r["ell_tol"] = tol = 4 * quad["sd"] / math.sqrt(ess)
+        off = abs(r["ell_mean"] - quad["mean"])
+        log(f"  {name}: mean ℓ {r['ell_mean']:.5f}, off the quadrature by {off:.5f} (tolerance "
+            f"4 sd / sqrt(ESS {ess:.0f}) = {tol:.5f})")
+        if not off <= tol:
+            raise AssertionError(f"sde OU {name}: mean ℓ {r['ell_mean']:.5f} is off the "
+                                 f"quadrature's {quad['mean']:.5f} by more than {tol:.5f}")
+
+    u2 = logit_l([quad["mean"] - 2 * quad["sd"], quad["mean"] + 2 * quad["sd"]])[:, None]
+
+    def density(d, dtype):
+        lp, g = value_and_grad(sde_model("y ~| OU(:x)", x, y, d, dtype).logdensity)(
+            torch.as_tensor(u2, dtype=dtype, device=d))
+        return {"log density": lp, "gradient": g}
+
+    errs = float32_rule("sde OU model at C = 2", density, SDE_RULE_RUNS)
+    u8 = torch.as_tensor(np.linspace(u2[0, 0] - 0.05, u2[1, 0] + 0.05, CHAINS)[:, None],
+                         dtype=torch.float32, device=dev)
+    prof = profile_vg(f"one OU value+grad at C = {CHAINS}, n = {N_OU}",
+                      sde_model("y ~| OU(:x)", x, y, dev, torch.float32), u8)
+    return launches, {"walls_s": walls, **runs, "quadrature": quad, "rel_err": errs,
+                      "value_grad": prof}, x, y
+
+
+def phase_sde_dense_check(dev, x, y):
+    """Path 5b: at n = 4096, C = 8, the sde OU marginal's value and gradient
+    on the card against the dense marginal through K2, K1 and K2b on the
+    card, both held by the float32 rule against float64 on the CPU (the sde
+    model; the dense float64 one on the card equals it to 1e-9)."""
+    from gaplac_tpu_torch.inference.hmc import value_and_grad
+    from gaplac_tpu_torch.ops import _build
+
+    n = N_BIG
+    log(f"[19] path 5: the sde OU marginal against the dense one, n = {n}, C = {CHAINS}")
+    xs, ys = x[:n], y[:n]
+    u = torch.as_tensor(logit_l(np.linspace(1.5, 6.0, CHAINS))[:, None])
+
+    def vg(approx, d, dtype):
+        m = sde_model("y ~| OU(:x)", xs, ys, d, dtype, approx=approx)
+        lp, g = value_and_grad(m.logdensity)(u.to(device=d, dtype=dtype))
+        return lp.cpu(), g.cpu()
+
+    ref = vg("sde", "cpu", torch.float64)
+    cpu32 = vg("sde", "cpu", torch.float32)
+    sde32 = vg("sde", dev, torch.float32)
+    dense64 = vg("exact", dev, torch.float64)
+    _build.reset_counts()
+    dense32 = vg("exact", dev, torch.float32)
+    torch.cuda.synchronize()
+    launches = dict(_build.counts)
+    with plain_kernels():
+        dense32_plain = vg("exact", dev, torch.float32)
+    errs = {}
+    for i, what in enumerate(("log density", "gradient")):
+        e64 = rel_err(dense64[i], ref[i])
+        log(f"  dense float64 on the card against sde float64 on the CPU, {what}: rel err "
+            f"{e64:.3e} (tolerance 1e-9)")
+        if not e64 <= 1e-9:
+            raise AssertionError(f"the dense and sde OU marginals differ in float64 ({what})")
+        errs[f"sde {what}"] = check_accuracy(
+            f"sde OU {what} at C = {CHAINS}, card f32 against cpu f64", sde32[i], (cpu32[i],),
+            ref[i])
+        errs[f"dense {what}"] = check_accuracy(
+            f"dense OU {what} (K2, K1, K2b) at C = {CHAINS}, card f32 against cpu f64",
+            dense32[i], (cpu32[i], dense32_plain[i]), ref[i])
+        errs[f"sde - dense {what}"] = rel_err(sde32[i], dense32[i])
+    log(f"  the dense value+grad's kernel launches {launches}; sde against dense on the card "
+        f"(float32): {errs['sde - dense log density']:.3e} / {errs['sde - dense gradient']:.3e}")
+    require_launches("path 5 (dense cross-check)", launches, ("K1", "K2", "K2b"))
+    return launches, {"rel_err": errs}
+
+
+def phase_sde_sqexp(dev):
+    """Path 5c: SqExp (d = 6) at n = 2^17: sample --approx sde, mcmc NUTS
+    with the accuracy guard, select --formulae SqExp vs OU by the float32
+    rule, select --estimator smc on a cut against a quadrature, and the
+    value+grad at C = 8 profiled (at C = 1 by the float32 rule)."""
+    import pandas as pd
+
+    from gaplac_tpu_torch import parse_formula
+    from gaplac_tpu_torch.inference.hmc import value_and_grad
+    from gaplac_tpu_torch.inference.routing import sde_lengthscale_guard, sde_structure_info
+    from gaplac_tpu_torch.kernels.covariance import compile_formula
+
+    log(f"[20] path 5: SqExp (d = 6), --approx sde, n = {N_SQEXP}, on the card")
+    data = OUT_DIR / f"data_sqexp_{N_SQEXP}.tsv"
+    _, wall_s, launches_s = timed_cli(["--platform", "cuda", "sample", "y :~| SqExp(:x; l=1.5)",
+                                       "--at", f"x = rand(Uniform(0,2000), {N_SQEXP})", "--seed",
+                                       "3", "--output", str(data), *SDE])
+    df = read_table(data, ["x", "y"], N_SQEXP)
+    x, y = df["x"].to_numpy(), df["y"].to_numpy()
+    launches = {"sample": launches_s}
+    capture = _Capture()
+    logging.getLogger().addHandler(capture)
+    path = OUT_DIR / "sde_sqexp_nuts.tsv"
+    try:
+        # the posterior is narrow: the cold warmup's trees are capped at depth 5
+        runs = mcmc_runs((
+            ("nuts", ["--samples", "10", "--warmup", "10", "--max-depth", "5"],
+             ["iteration", "chain", "ℓ", "lp", "acceptance_rate", "tree_depth",
+              "numerical_error"], 10, path),),
+            ["-v", "--platform", "cuda", "mcmc", "y ~| SqExp(:x)", "--data", str(data), "--infer",
+             "x", "--seed", "1", "--no-latents", *SDE], capture)
+    finally:
+        logging.getLogger().removeHandler(capture)
+    launches["mcmc nuts"] = runs["nuts"].pop("launches")
+    # the guard: silent for this posterior (l near 1.5, span 2000), and firing
+    # for the same draws moved past a third of the span
+    if "accuracy guard" in runs["nuts"]["stdout"]:
+        raise AssertionError("the sde guard fired for l near 1.5 on a span of 2000")
+    ck = compile_formula(parse_formula("y ~| SqExp(:x)").formula)
+    thetas = pd.read_csv(path, sep="\t")["ℓ"].to_numpy()[None, :, None]
+    st = sde_structure_info(ck, x[:, None])[2]
+    span = float(x.max() - x.min())
+    fired = sde_lengthscale_guard(ck, st, x[:, None], thetas + span / 3, ((0,),))
+    if sde_lengthscale_guard(ck, st, x[:, None], thetas, ((0,),)) is not None or not fired:
+        raise AssertionError("the sde guard's decisions on the SqExp chain are wrong")
+    log(f"  the guard stays silent on the chain and fires on it moved by span/3: {fired[:60]}...")
+
+    formulae = ["y ~| SqExp(:x)", "y ~| OU(:x)"]
+    argv = ["select", "--formulae", *formulae, "--data", str(data), *SDE]
+    report, wall_sel, launches["select"] = timed_cli(["--platform", "cuda", *argv])
+    sel_errs = float32_rule("sde select lp", lambda d, dt: dict(zip(
+        formulae, select_lps(run_cli([*cli_precision(d, dt), *argv])))), SDE_RULE_RUNS)
+    log(f"  select: wall {wall_sel:.2f} s; {report.splitlines()[0]}")
+    smc = sde_smc(dev, df.head(N_SMC_CUT))
+    launches["select smc"] = smc.pop("launches")
+    for k in ("sample", "mcmc nuts", "select", "select smc"):
+        no_kernels(f"sde SqExp {k}", launches[k])
+
+    u1 = torch.as_tensor(logit_l([1.5])[:, None])
+
+    def density(d, dtype):
+        lp, g = value_and_grad(sde_model("y ~| SqExp(:x)", x, y, d, dtype).logdensity)(
+            u1.to(device=d, dtype=dtype))
+        return {"log density": lp, "gradient": g}
+
+    errs = float32_rule("sde SqExp model at C = 1", density, SDE_RULE_RUNS)
+    u8 = torch.as_tensor(logit_l(np.linspace(1.2, 1.9, CHAINS))[:, None], dtype=torch.float32,
+                         device=dev)
+    prof = profile_vg(f"one SqExp value+grad at C = {CHAINS}, n = {N_SQEXP}",
+                      sde_model("y ~| SqExp(:x)", x, y, dev, torch.float32), u8)
+    return launches, {"sample_wall_s": wall_s, **runs, "guard": fired,
+                      "select": {"wall_s": wall_sel, "rel_err": sel_errs}, "smc": smc,
+                      "rel_err": errs, "value_grad": prof}
+
+
+def sde_smc(dev, df) -> dict:
+    """select --estimator smc --approx sde on the first N_SMC_CUT rows (the
+    cut: at 2^17 rows one evaluation of 512 particles is 7 chunks of the
+    SqExp scan): beta reaches 1, and the SqExp evidence is within 0.5 nats
+    of a float64 quadrature."""
+    particles = 512
+    small = OUT_DIR / f"data_sqexp_{N_SMC_CUT}.tsv"
+    df.to_csv(small, sep="\t", index=False)
+    capture = _Capture()
+    logging.getLogger().addHandler(capture)
+    try:
+        report, wall, launches = timed_cli(
+            ["-v", "--platform", "cuda", "select", "--estimator", "smc", "--formulae",
+             "y ~| SqExp(:x)", "y ~| OU(:x)", "--data", str(small), "--particles",
+             str(particles), *SDE], capture)
+        lines = list(capture.lines)
+    finally:
+        logging.getLogger().removeHandler(capture)
+    lps = select_lps(report)
+    stages = [s for s in lines if s.startswith("SMC evidence for")]
+    quad = sde_quadrature(dev, "y ~| SqExp(:x)", df["x"].to_numpy(), df["y"].to_numpy())
+    off = abs(lps[0] - quad["log_evidence"])
+    log(f"  select --estimator smc ({particles} particles, the first {N_SMC_CUT} rows): wall "
+        f"{wall:.1f} s; {stages}; SqExp evidence {lps[0]:.4f} against the float64 quadrature "
+        f"{quad['log_evidence']:.4f}: off by {off:.4f} (tolerance 0.5)")
+    if any("stopped at inverse temperature" in s for s in lines) or len(stages) != 2:
+        raise AssertionError("an sde SMC run did not reach beta = 1")
+    if not off <= 0.5:
+        raise AssertionError("sde SMC SqExp evidence is off the quadrature")
+    return {"wall_s": wall, "lps": lps, "quadrature": quad, "stages": stages,
+            "launches": launches}
+
+
+def phase_sde_quasi_periodic(dev):
+    """Path 5d: the quasi-periodic Periodic(p=3) * Matern32 block (d = 42):
+    sample --approx sde at n = 16384 (its prior draw takes eigh of every
+    step noise), one report, the value+grad at C = 1 by the float32 rule and
+    profiled; predict at n = 2^17, windowed by default, and at 16384
+    monolithic against windowed (float64 on the card, the windowed-smoothing
+    test's tolerance) and by the float32 rule."""
+    import pandas as pd
+
+    from gaplac_tpu_torch.inference.hmc import value_and_grad
+
+    log(f"[21] path 5: {QP_FORMULA} (d = 42), --approx sde, on the card")
+    data = OUT_DIR / f"data_qp_{N_QP}.tsv"
+    _, wall_sample, launches = timed_cli(
+        ["--platform", "cuda", "sample", "y :~| Periodic(:x; l=1.0, p=3.0) * Matern32(:x)",
+         "--at", f"x = rand(Uniform(0,500), {N_QP})", "--seed", "4", "--output", str(data),
+         *SDE])
+    no_kernels("sde quasi-periodic sample", launches)
+    df = read_table(data, ["x", "y"], N_QP)
+    x, y = df["x"].to_numpy(), df["y"].to_numpy()
+    log(f"  sample at n = {N_QP}: {wall_sample:.2f} s")
+    m32 = sde_model(QP_FORMULA, x, y, dev, torch.float32)
+    u1 = torch.as_tensor(logit_l([1.0])[:, None])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m32.report(torch.Generator(device=dev).manual_seed(0), u1.to(dev, torch.float32))
+    torch.cuda.synchronize()
+    report_s = time.perf_counter() - t0
+    log(f"  one report (a latent draw) at n = {N_QP}: {report_s:.2f} s")
+
+    def density(d, dtype):
+        lp, g = value_and_grad(sde_model(QP_FORMULA, x, y, d, dtype).logdensity)(
+            u1.to(device=d, dtype=dtype))
+        return {"log density": lp, "gradient": g}
+
+    errs = float32_rule("sde quasi-periodic model at C = 1", density, SDE_RULE_RUNS)
+    prof = profile_vg(f"one quasi-periodic value+grad at C = 1, n = {N_QP}", m32,
+                      u1.to(dev, torch.float32))
+
+    rng = np.random.default_rng(5)
+    xp = np.sort(rng.uniform(0, 500.0, N_QP_PREDICT))
+    yp = np.sin(2 * np.pi * xp / 3.0) * np.exp(-0.1 * xp % 1) + rng.normal(0, 0.3, N_QP_PREDICT)
+    big = OUT_DIR / f"data_qp_{N_QP_PREDICT}.tsv"
+    pd.DataFrame({"x": xp, "y": yp}).to_csv(big, sep="\t", index=False)
+    at = ["--at", f"x = rand(Uniform(0,500), {N_AT})", "--seed", "2"]
+    out = OUT_DIR / "sde_qp_predict.tsv"
+    capture = _Capture()
+    logging.getLogger().addHandler(capture)
+    try:
+        _, wall_big, launches_p = timed_cli(["-v", "--platform", "cuda", "predict", QP_FORMULA,
+                                             "--data", str(big), *at, "--output", str(out), *SDE],
+                                            capture)
+        windowed = any("windowed smoothing on" in s for s in capture.lines)
+    finally:
+        logging.getLogger().removeHandler(capture)
+    no_kernels("sde quasi-periodic predict", launches_p)
+    pdf = read_table(out, ["x", "ymu", "yQ050", "yQ950"], N_AT)
+    log(f"  predict at n = {N_QP_PREDICT}, {N_AT} points: {wall_big:.2f} s, windowed by default: "
+        f"{windowed}")
+    if not windowed or not ((pdf["yQ050"] <= pdf["ymu"]) & (pdf["ymu"] <= pdf["yQ950"])).all():
+        raise AssertionError("predict at 2^17, d = 42: not windowed, or ymu outside its band")
+
+    def predict(d, dtype, window):
+        path = OUT_DIR / f"sde_qp_predict_{d}_{dtype}_{window}.tsv"
+        run_cli([*cli_precision(d, dtype), "predict", QP_FORMULA, "--data", str(data), *at,
+                 "--sde-window", str(window), "--output", str(path), *SDE])
+        return read_table(path, ["x", "ymu", "yQ050", "yQ950"], N_AT)
+
+    t0 = time.perf_counter()
+    mono = predict("cuda", torch.float64, 0)
+    wall_mono = time.perf_counter() - t0
+    win = predict("cuda", torch.float64, 4096)
+    win_err = {}
+    for c in ("ymu", "yQ050", "yQ950"):
+        d = np.abs(win[c].to_numpy() - mono[c].to_numpy())
+        ok = d <= 3e-5 + 1e-4 * np.abs(mono[c].to_numpy())
+        win_err[c] = float(d.max())
+        if not ok.all():
+            raise AssertionError(f"windowed predict {c} is off the monolithic one by {d.max():.3e}")
+    log(f"  predict at n = {N_QP}, float64: windowed (4096 rows, overlap 512) against monolithic "
+        f"({wall_mono:.2f} s): largest differences {win_err} (tolerance 3e-5 + 1e-4 |value|)")
+    pred_errs = float32_rule(f"sde quasi-periodic predict at n = {N_QP}", lambda d, dt: {
+        c: v.to_numpy() for c, v in predict(d, dt, 0)[["ymu", "yQ050", "yQ950"]].items()},
+        SDE_RULE_RUNS)
+    return {"sample": launches, "predict": launches_p}, {
+        "sample_wall_s": wall_sample, "report_s": report_s, "rel_err": errs, "value_grad": prof,
+        "predict_wall_s": wall_big, "predict_monolithic_wall_s": wall_mono,
+        "windowed_max_abs_diff": win_err, "predict_rel_err": pred_errs}
+
+
+def phase_sde_nongaussian(dev):
+    """Path 5e: mcmc "y : Bernoulli ~| OU(:x)" --approx sde (the state-space
+    Laplace marginal, 15 smoothings an evaluation) and --no-marginalize (the
+    whitened model), at n = 2^16, with fixed-trajectory HMC; each model's
+    value+grad at C = 1 by the float32 rule, and profiled; each HMC run's
+    mean acceptance must reach 0.1."""
+    import pandas as pd
+
+    from gaplac_tpu_torch.inference.hmc import value_and_grad
+
+    n = N_NONGAUSS
+    log(f"[22] path 5: Bernoulli --approx sde (Laplace) and --no-marginalize, n = {n}")
+    rng = np.random.default_rng(6)
+    x = np.sort(rng.uniform(0, 500.0, n))
+    latent = np.sin(x / 1.5) + rng.normal(0, 0.5, n)
+    yb = (rng.uniform(size=n) < 1 / (1 + np.exp(-latent))).astype(int)
+    data = OUT_DIR / f"bernoulli_{n}.tsv"
+    pd.DataFrame({"x": x, "y": yb}).to_csv(data, sep="\t", index=False)
+    capture = _Capture()
+    logging.getLogger().addHandler(capture)
+    cols = ["iteration", "chain", "ℓ", "lp", "acceptance_rate", "step_size"]
+    hmc = ["--sampler", "hmc", "--chains", "2", "--samples", "3"]
+    try:
+        # Laplace runs without warmup (one adaptation step from the initial
+        # step size overshoots); the whitened model's 65537 coordinates need
+        # ten warmup steps to find a step size that accepts
+        runs = mcmc_runs((
+            ("laplace", [*hmc, "--warmup", "0", "--leapfrogs", "2"], cols, 6,
+             OUT_DIR / "sde_laplace.tsv"),
+            ("whitened", [*hmc, "--warmup", "10", "--leapfrogs", "4", "--no-marginalize"], cols,
+             6, OUT_DIR / "sde_whitened.tsv"),
+        ), ["-v", "--platform", "cuda", "mcmc", "y : Bernoulli ~| OU(:x)", "--data", str(data),
+            "--infer", "x", "--seed", "1", "--no-latents", *SDE], capture)
+    finally:
+        logging.getLogger().removeHandler(capture)
+    launches = {name: r.pop("launches") for name, r in runs.items()}
+    for name in launches:
+        no_kernels(f"sde {name} mcmc", launches[name])
+        acc = runs[name]["acceptance_mean"]
+        log(f"  {name}: mean acceptance {acc:.3f} over its table")
+        if not acc >= 0.1:
+            raise AssertionError(f"sde {name} HMC accepted too little: mean {acc:.3f} < 0.1")
+    out = {**runs}
+    for name, kw in (("laplace", {}), ("whitened", {"marginalize": False})):
+        z = np.random.default_rng(7).normal(size=n) * 0.3
+
+        def position(d, dtype, dim):
+            u = np.concatenate([logit_l([2.0]), z])[:dim]
+            return torch.as_tensor(u[None], dtype=dtype, device=d)
+
+        def density(d, dtype):
+            m = sde_model("y : Bernoulli ~| OU(:x)", x, yb, d, dtype, **kw)
+            lp, g = value_and_grad(m.logdensity)(position(d, dtype, m.dim))
+            return {"log density": lp, "gradient": g}
+
+        errs = float32_rule(f"sde {name} model at C = 1", density, SDE_RULE_RUNS)
+        m = sde_model("y : Bernoulli ~| OU(:x)", x, yb, dev, torch.float32, **kw)
+        out[name]["rel_err"] = errs
+        out[name]["value_grad"] = profile_vg(f"one {name} value+grad at C = 1, n = {n}", m,
+                                             position(dev, torch.float32, m.dim), reps=2,
+                                             windows=1)
+    return launches, out
+
+
+def phase_sde_longitudinal(dev):
+    """Path 5f: the longitudinal formula through sample, mcmc (NUTS) and
+    fitplot's component posteriors (by the float32 rule), PERSONS x VISITS
+    rows."""
+    from gaplac_tpu_torch import parse_formula
+    from gaplac_tpu_torch.cli.common import design_matrix
+    from gaplac_tpu_torch.cli.fitplot_cmd import markov_component_posteriors
+    from gaplac_tpu_torch.kernels.covariance import compile_formula
+
+    n = PERSONS * VISITS
+    log(f"[23] path 5: {LONGITUDINAL}, {PERSONS} persons x {VISITS} visits, --approx sde")
+    data = OUT_DIR / "longitudinal.tsv"
+    _, wall_sample, launches_s = timed_cli([
+        "--platform", "cuda", "sample",
+        "y :~| OU(:t; l=3.0)*Cat(:PersonID) + Cat(:PersonID) + Noise", "--at",
+        f"t/PersonID = rand(Uniform(0,20), {VISITS}); PersonID = 1:{PERSONS}", "--seed", "5",
+        "--output", str(data), *SDE])
+    df = read_table(data, ["PersonID", "t", "y"], n)
+    capture = _Capture()
+    logging.getLogger().addHandler(capture)
+    try:
+        runs = mcmc_runs((("nuts", ["--samples", "20", "--warmup", "20", "--max-depth", "6"],
+                           ["iteration", "chain", "ℓ", "lp", "acceptance_rate", "tree_depth",
+                            "numerical_error"], 20, OUT_DIR / "sde_longitudinal.tsv"),),
+                         ["-v", "--platform", "cuda", "mcmc", LONGITUDINAL, "--data", str(data),
+                          "--infer", "t", "--seed", "1", "--no-latents", *SDE], capture)
+    finally:
+        logging.getLogger().removeHandler(capture)
+    launches = {"sample": launches_s, "mcmc nuts": runs["nuts"].pop("launches")}
+    ck = compile_formula(parse_formula(LONGITUDINAL).formula)
+    design = design_matrix(df, ck)
+    info = {}
+
+    def components(d, dtype):
+        X = torch.tensor(design, dtype=dtype, device=d)
+        p = ck.default_params(dtype, d)
+        t0 = time.perf_counter()
+        got = markov_component_posteriors(ck, p, X, torch.tensor(df["y"].to_numpy(), dtype=dtype,
+                                                                  device=d), 1.1, range(3))
+        info.setdefault("wall_s", time.perf_counter() - t0)
+        return {f"term {t} {what}": v for t, mu, sd in got
+                for what, v in (("mean", mu), ("sd", sd))}
+
+    errs = float32_rule("sde longitudinal fitplot component", components, SDE_RULE_RUNS)
+    for k, v in launches.items():
+        no_kernels(f"sde longitudinal {k}", v)
+    log(f"  sample {wall_sample:.2f} s; fitplot's numbers {info['wall_s']:.3f} s")
+    return launches, {"sample_wall_s": wall_sample, **runs, "fitplot_wall_s": info["wall_s"],
+                      "fitplot_rel_err": errs}
+
+
+def phase_auto(dev):
+    """Path 5g: --approx auto.  At n = 4096 select and mcmc pick the dense
+    path (select's 2-D factorizations take K3's blocked route; mcmc's batch
+    K1), at n = 2^17 mcmc picks sde; each choice read from the log."""
+    from gaplac_tpu_torch.ops import _build
+
+    log("[24] path 5: --approx auto at n = 4096 and 2^17")
+    data4096 = OUT_DIR / "data_4096.tsv"
+    big = OUT_DIR / f"data_sqexp_{N_SQEXP}.tsv"
+    auto = ["--approx", "auto"]
+    hmc = ["--sampler", "hmc", "--chains", "2", "--leapfrogs", "2", "--samples", "2", "--warmup",
+           "1", "--no-latents"]
+    capture = _Capture()
+    logging.getLogger().addHandler(capture)
+    out, launches = {}, {}
+    try:
+        for name, argv, want in (
+            ("select n=4096", ["select", "--formulae", "y ~| SqExp(:x)", "y ~| OU(:x)", "--data",
+                               str(data4096)], "none"),
+            ("mcmc n=4096", ["mcmc", "y ~| SqExp(:x)", "--data", str(data4096), "--infer", "x",
+                             *hmc, "--output", str(OUT_DIR / "auto_4096.tsv")], "none"),
+            ("mcmc n=2^17", ["mcmc", "y ~| SqExp(:x)", "--data", str(big), "--infer", "x",
+                             *hmc, "--output", str(OUT_DIR / "auto_2e17.tsv")], "sde"),
+        ):
+            _, wall, launches[name] = timed_cli(["-v", "--platform", "cuda", *argv, *auto],
+                                                capture)
+            chose = [s for s in capture.lines if s.startswith("--approx auto:")]
+            log(f"  {name}: {chose}; wall {wall:.2f} s; kernel launches {launches[name]}")
+            if len(chose) not in (1, 2) or not all(s.startswith(f"--approx auto: {want} ")
+                                                   for s in chose):
+                raise AssertionError(f"auto {name} did not choose {want}: {chose}")
+            out[name] = {"wall_s": wall, "chose": chose}
+    finally:
+        logging.getLogger().removeHandler(capture)
+    require_launches("path 5 (auto select, n = 4096)", launches["select n=4096"], ("K2", "K3"))
+    require_launches("path 5 (auto mcmc, n = 4096)", launches["mcmc n=4096"], ("K1", "K2", "K2b"))
+    no_kernels("auto mcmc at 2^17", launches["mcmc n=2^17"])
+    return launches, out
+
+
 def gram_times(dev) -> dict:
     """Only K2 and K2b at phase 5's shapes (``--gram-times``): the wrapper's
     host time, CUDA-event time, the profiler's device time and the bound.
@@ -1865,6 +2527,88 @@ def gram_times(dev) -> dict:
             in gram_rows(ck, p, X, G, p[:1].contiguous(), Xb).items()}
 
 
+def sde_probes(dev) -> dict:
+    """``--sde-probes``: the combines' solver on the quasi-periodic
+    value+grad, and the SqExp block's float32 steps (module docstring)."""
+    from gaplac_tpu_torch.inference.hmc import value_and_grad
+    from gaplac_tpu_torch.ops import markov_ss as mss
+
+    out = {}
+    log(f"[probe 1] {QP_FORMULA} value+grad at C = 1, n = {N_QP}: solve_ex against solve")
+    rng = np.random.default_rng(5)
+    x = np.sort(rng.uniform(0, 500.0, N_QP))
+    y = np.sin(2 * np.pi * x / 3.0) + rng.normal(0, 0.3, N_QP)
+    model = sde_model(QP_FORMULA, x, y, dev, torch.float32)
+    u1 = torch.as_tensor(logit_l([1.0])[:, None], dtype=torch.float32, device=dev)
+    shipped = mss._solve
+    solvers = {"solve_ex": shipped, "solve": lambda D, B: torch.linalg.solve(D, B)}
+    try:
+        for i, name in enumerate(("solve_ex", "solve", "solve", "solve_ex")):
+            mss._solve = solvers[name]
+            out[f"{i} {name}"] = profile_vg(f"{name} ({i})", model, u1, windows=1)
+    finally:
+        mss._solve = shipped
+
+    log(f"[probe 2] SqExp (d = 6) from float32 data at n = {N_SQEXP}: float64 steps against "
+        "float32 steps")
+    x = np.sort(np.random.default_rng(3).uniform(0, 2000.0, N_SQEXP))
+    t64 = torch.as_tensor(x, device=dev)
+    A, Q, H = mss.build_steps([mss.BLOCK_SQEXP], [torch.tensor(1.5, dtype=torch.float64)], t64,
+                              [None])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    f = mss.measure_row(H, mss.ss_prior_sample(gen, A, Q))
+    y = (f + torch.randn(f.shape, generator=gen, dtype=f.dtype, device=dev)).cpu().numpy()
+    u = torch.as_tensor(logit_l([1.5])[:, None], device=dev)
+
+    def run(dtype):
+        m = sde_model("y ~| SqExp(:x)", x, y, dev, dtype)
+        lp, g = value_and_grad(m.logdensity)(u.to(dtype))
+        _, fr, lpr = m.report(torch.Generator(device=dev).manual_seed(1), u.to(dtype))
+        A, Q, H = mss.build_steps([mss.BLOCK_SQEXP], [torch.tensor(1.5, dtype=dtype)],
+                                  torch.as_tensor(x, dtype=dtype, device=dev), [None])
+        P = mss.ss_filter_cov(A, Q, H, torch.ones(1, dtype=A.dtype, device=dev))
+        # cuSOLVER's batched eigh refuses batches past EIGH_BATCH (psd_sqrt)
+        least = torch.cat([torch.linalg.eigvalsh(c)[..., 0]
+                           for c in P.double().split(mss.EIGH_BATCH)])
+        return {"steps": str(A.dtype), "lp": float(lp), "grad": float(g.flatten()[0]),
+                "least_eigenvalue": float(least.min()), "indefinite_steps": int((least < 0).sum()),
+                "report_finite": bool(torch.isfinite(fr).all() and torch.isfinite(lpr).all())}
+
+    ref = run(torch.float64)
+    modal = mss._sqexp_constants_cached()
+
+    def unit_variance_basis(order=mss.SQEXP_ORDER):
+        modes, Pz, h = modal
+        s, off = np.ones(len(h)), 0
+        for _, be in modes:
+            w = 1 if be is None else 2
+            s[off:off + w] = 1.0 / math.sqrt(Pz.diagonal()[off:off + w].max())
+            off += w
+        return modes, s[:, None] * Pz * s[None, :], h / s
+
+    variants = {"float64 steps (shipped)": {},
+                "float32 steps, modal basis": {"steps_dtype": lambda kinds, dtype: dtype},
+                "float32 steps, unit-variance basis": {
+                    "steps_dtype": lambda kinds, dtype: dtype,
+                    "_sqexp_constants_cached": unit_variance_basis}}
+    for name, patch in variants.items():
+        saved = {k: getattr(mss, k) for k in patch}
+        try:
+            for k, v in patch.items():
+                setattr(mss, k, v)
+            r = run(torch.float32)
+        finally:
+            for k, v in saved.items():
+                setattr(mss, k, v)
+        r["lp_rel_err"] = abs(r["lp"] - ref["lp"]) / abs(ref["lp"])
+        r["grad_rel_err"] = abs(r["grad"] - ref["grad"]) / abs(ref["grad"])
+        out[name] = r
+        log(f"  {name}: {r}")
+    out["float64"] = ref
+    log(f"  float64 data: {ref}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1875,6 +2619,9 @@ def main() -> int:
     card = phase_card_and_build()
     if "--gram-times" in sys.argv[1:]:
         print(json.dumps({"card": card, "gram_times": gram_times(dev)}))
+        return 0
+    if "--sde-probes" in sys.argv[1:]:
+        print(json.dumps({"card": card, "sde_probes": sde_probes(dev)}, default=str))
         return 0
     k1_err, k1_fit = phase_k1(dev)
     k2_errs = phase_k2(dev)
@@ -1900,6 +2647,21 @@ def main() -> int:
     path4_launches["predict"], path4["predict"] = phase_rff_predict(
         data4, path4["mcmc"]["chees"]["path"])
     path4_launches["fitplot"], path4["fitplot"] = phase_rff_fitplot(x4, y4)
+    # path 5, each step with the launch counts set to 0 just before it
+    path5_launches, path5 = {}, {}
+    ou_launches, path5["ou"], x5, y5 = phase_sde_ou(dev)
+    path5_launches.update({f"ou {k}": v for k, v in ou_launches.items()})
+    path5_launches["dense check"], path5["dense_check"] = phase_sde_dense_check(dev, x5, y5)
+    sq_launches, path5["sqexp"] = phase_sde_sqexp(dev)
+    path5_launches.update({f"sqexp {k}": v for k, v in sq_launches.items()})
+    qp_launches, path5["quasi_periodic"] = phase_sde_quasi_periodic(dev)
+    path5_launches.update({f"quasi-periodic {k}": v for k, v in qp_launches.items()})
+    ng_launches, path5["nongaussian"] = phase_sde_nongaussian(dev)
+    path5_launches.update({f"bernoulli {k}": v for k, v in ng_launches.items()})
+    lo_launches, path5["longitudinal"] = phase_sde_longitudinal(dev)
+    path5_launches.update({f"longitudinal {k}": v for k, v in lo_launches.items()})
+    auto_launches, path5["auto"] = phase_auto(dev)
+    path5_launches.update({f"auto {k}": v for k, v in auto_launches.items()})
     kernels = []
     for key, name, src, replaces, err in (
         ("K1", "K1 chol_batched", "gaplac_tpu_torch/csrc/chol_batched.cu",
@@ -1913,7 +2675,8 @@ def main() -> int:
     ):
         by_path = {"mcmc": mcmc_launches[key], "sample_select_predict": big_launches[key],
                    **{f"path3 {k}": v[key] for k, v in path3_launches.items()},
-                   **{f"path4 {k}": v[key] for k, v in path4_launches.items()}}
+                   **{f"path4 {k}": v[key] for k, v in path4_launches.items()},
+                   **{f"path5 {k}": v[key] for k, v in path5_launches.items()}}
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                "launches": sum(by_path.values()), "launches_by_path": by_path,
                "max_abs_err": err, **times[key]}
@@ -1950,6 +2713,7 @@ def main() -> int:
         + json.dumps({k: path2_checks[k] for k in ("select", "predict")}))
     log("path 3: " + json.dumps(path3, default=str))
     log("path 4: " + json.dumps(path4, default=str))
+    log("path 5: " + json.dumps(path5, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,5 @@
 """`fitplot` command: the posterior of each additive component of the GP at
-the training inputs (port of ``gaplac_tpu/cli/fitplot_cmd.py`` for
-``--approx none`` and ``rff``).
+the training inputs (port of ``gaplac_tpu/cli/fitplot_cmd.py``).
 
 For an additive kernel K = sum_t K_t with S = K + noise I, component t has
 
@@ -10,9 +9,12 @@ For an additive kernel K = sum_t K_t with S = K + noise I, component t has
 computed through the dense factorization of S (the blocked route, kernel
 K3, at n >= 2048) and each term's gram (kernel K2); with ``--approx rff``
 through the feature map and the Woodbury factorization of S (one m_total x
-m_total capacitance matrix: K1, or K3's blocked route from 2048 on).
-``component_posteriors`` and ``lowrank_component_posteriors`` return the
-numbers and import no matplotlib;
+m_total capacitance matrix: K1, or K3's blocked route from 2048 on); with
+``--approx sde`` from one smoothing pass of the whole model, each block's
+rows of the state posterior read off by its part of the measurement row.
+``--approx auto`` routes by ``inference/routing.py``.
+``component_posteriors``, ``lowrank_component_posteriors`` and
+``markov_component_posteriors`` return the numbers and import no matplotlib;
 ``run`` draws one panel a component against its first variable, mean +- 2
 sd.  With --mcmc, the hyperparameters are the chain's posterior means.
 """
@@ -30,15 +32,17 @@ from gaplac_tpu_torch.cli.common import (
     chain_slot_groups,
     column_values,
     design_matrix,
-    refuse_unported,
     response_vector,
 )
 from gaplac_tpu_torch.data import complete_cases, load_tables
 from gaplac_tpu_torch.dsl import parse_formula
 from gaplac_tpu_torch.inference.likelihoods import gaussian_obs_sigma2
+from gaplac_tpu_torch.inference.model import markov_data
+from gaplac_tpu_torch.inference.routing import resolve_auto_approx
 from gaplac_tpu_torch.kernels.covariance import KIND_NAMES, CompiledKernel, compile_formula
 from gaplac_tpu_torch.kernels.features import FeatureMap, build_feature_map
 from gaplac_tpu_torch.ops import linalg, lowrank
+from gaplac_tpu_torch.ops import markov_ss as mss
 from gaplac_tpu_torch.runtime import Runtime
 
 log = logging.getLogger("gaplac")
@@ -119,22 +123,57 @@ def lowrank_component_posteriors(fm: FeatureMap, params: torch.Tensor, X: torch.
     return out
 
 
+def markov_component_posteriors(ck: CompiledKernel, params: torch.Tensor, X: torch.Tensor,
+                                y: torch.Tensor, noise: float, terms: Sequence[int],
+                                dynamic_slots=()) -> List[Tuple[int, np.ndarray, np.ndarray]]:
+    """component_posteriors through the state-space path (--approx sde).
+
+    One smoothing pass of the whole model gives the joint state posterior;
+    component t is its block's part of it, mu_t = H_t m_s and
+    var_t = H_t P_s H_tᵀ (the blocks are independent), and a Noise term uses
+    S⁻¹ = R⁻¹ I − R⁻² Var(Hx | y).  O(n log n), no n × n matrix."""
+    md = markov_data(ck, X, dynamic_slots=dynamic_slots)
+    A, Q, H = md.steps(ck, params)
+    R = md.j_eff(params, noise)
+    ys = y[md.idx]
+    m_s, P_s = mss.ss_smooth(A, Q, H, ys, R)
+    h_var = mss.measure_var(H, P_s)
+    offs = np.cumsum([0] + [mss.block_dim(k) for k in md.kinds])
+    out = []
+    for t in terms:
+        tag, i = md.st.term_map[t]
+        if tag == "n":  # K_t = s2 I
+            s2 = params[i]
+            mu = s2 * (ys - mss.measure_row(H, m_s)) / R
+            var = s2 - s2 * s2 * (1.0 / R - h_var / (R * R))
+        else:
+            mask = torch.zeros(H.shape[-1], dtype=H.dtype, device=H.device)
+            mask[int(offs[i]):int(offs[i + 1])] = 1.0
+            mu, var = mss.measure_row(H * mask, m_s), mss.measure_var(H * mask, P_s)
+        mu, var = mu[md.inv_idx], var[md.inv_idx]
+        out.append((t, mu.cpu().numpy(), np.sqrt(np.maximum(var.cpu().numpy(), 0.0))))
+    return out
+
+
 def run(args, rt: Runtime) -> None:
     log.info("running 'fitplot'")
-    refuse_unported([(f"--approx {args.approx}", args.approx not in ("none", "rff"))])
     device, dtype = rt
     spec = parse_formula(args.formula)
     ck = compile_formula(spec.formula)
     df = apply_outlier_policy(complete_cases(load_tables(args.data)), args, spec.response)
     y = torch.tensor(response_vector(df, spec), dtype=dtype, device=device)
-    X = torch.tensor(design_matrix(df, ck), dtype=dtype, device=device)
+    X_np = design_matrix(df, ck)
+    X = torch.tensor(X_np, dtype=dtype, device=device)
     n = X.shape[0]
+    resolve_auto_approx(args, ck, X_np, "fitplot", spec)
 
     params = ck.default_params(dtype, device)
+    dynamic_slots = ()
     if args.mcmc:
         from gaplac_tpu_torch.cli.predict_cmd import _hyper_draws
 
         slot_groups = chain_slot_groups(ck, args)
+        dynamic_slots = {s for g in slot_groups for s in g}
         means = _hyper_draws(args.mcmc, n_hyper=len(slot_groups)).mean(axis=0)
         for g, slots in enumerate(slot_groups):
             if slots:
@@ -153,6 +192,9 @@ def run(args, rt: Runtime) -> None:
     if args.approx == "rff":
         fm = build_feature_map(ck, [X], num_features=args.rff_features, seed=args.rff_seed)
         panels = lowrank_component_posteriors(fm, params, X, y, args.jitter + sigma2, terms)
+    elif args.approx == "sde":
+        panels = markov_component_posteriors(ck, params, X, y, args.jitter + sigma2, terms,
+                                             dynamic_slots)
     else:
         panels = component_posteriors(ck, params, X, y, args.jitter + sigma2, terms)
 

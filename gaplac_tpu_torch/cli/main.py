@@ -3,13 +3,13 @@
 
 The five commands (``sample``, ``mcmc``, ``select``, ``predict`` and
 ``fitplot``) are ported on the dense exact model (``--approx none``, and
-``mcmc --approx laplace``) and on the low-rank feature path (``--approx
-rff``), with every sampler and estimator and the flags and defaults of
-``gaplac_tpu``; the flags whose paths wait raise "not yet ported"
-(``--approx sde|auto``, the ``--sde-*`` knobs, ``--profile``,
-``--check-numerics``).  The commands run on the card; without one they
-refuse to start unless given ``--platform cpu``.  matplotlib is needed only
-for ``--plot`` and ``fitplot``.
+``mcmc --approx laplace``), the low-rank feature path (``--approx rff``)
+and the state-space path (``--approx sde``, with its ``--sde-*`` knobs), and
+``--approx auto`` routes between them, with every sampler and estimator and
+the flags and defaults of ``gaplac_tpu``; ``--profile`` and
+``--check-numerics`` raise "not yet ported".  The commands run on the card;
+without one they refuse to start unless given ``--platform cpu``.
+matplotlib is needed only for ``--plot`` and ``fitplot``.
 
 Run as ``python -m gaplac_tpu_torch.cli.main <command> ...``.
 """
@@ -72,7 +72,9 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--jitter", type=float, default=0.1, help="Latent GP noise floor")
     ps.add_argument("--approx", choices=["none", "rff", "sde", "auto"], default="none",
                     help="none: the dense exact model; rff: random Fourier features, the "
-                    "O(n m^2) low-rank path for large n; sde and auto are not yet ported")
+                    "O(n m^2) low-rank path for large n; sde: the O(n log n) state-space "
+                    "path for formulas with a state-space form; auto: routed by n, the "
+                    "formula and the command")
     ps.add_argument("--rff-features", type=int, default=256, metavar="M",
                     help="Features per stationary kernel leaf with --approx rff")
     ps.add_argument("--rff-seed", type=int, default=0)
@@ -125,7 +127,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="none: the dense exact model; laplace: the Laplace marginal "
                     "over theta for non-Gaussian likelihoods; rff: random Fourier "
                     "features, the O(n m^2) low-rank marginal for large n (Gaussian "
-                    "likelihoods); sde and auto are not yet ported")
+                    "likelihoods); sde: the O(n log n) state-space models (the Laplace "
+                    "marginal for non-Gaussian likelihoods, the whitened model with "
+                    "--no-marginalize); auto: routed by n, the formula and the likelihood")
     pm.add_argument("--rff-features", type=int, default=256, metavar="M",
                     help="Features per stationary kernel leaf with --approx rff")
     pm.add_argument("--rff-seed", type=int, default=0,
@@ -166,7 +170,9 @@ def build_parser() -> argparse.ArgumentParser:
     pl.add_argument("--particles", type=int, default=512, help="SMC particle count")
     pl.add_argument("--approx", choices=["none", "rff", "sde", "auto"], default="none",
                     help="none: the dense exact model; rff: random Fourier features, the "
-                    "O(n m^2) low-rank path for large n; sde and auto are not yet ported")
+                    "O(n m^2) low-rank path for large n; sde: the O(n log n) state-space "
+                    "path for formulas with a state-space form; auto: routed by n, the "
+                    "formula and the command")
     pl.add_argument("--rff-features", type=int, default=256, metavar="M",
                     help="Features per stationary kernel leaf with --approx rff")
     pl.add_argument("--rff-seed", type=int, default=0)
@@ -194,14 +200,19 @@ def build_parser() -> argparse.ArgumentParser:
     pp.add_argument("--jitter", type=float, default=0.1)
     pp.add_argument("--approx", choices=["none", "rff", "sde", "auto"], default="none",
                     help="none: the dense exact model; rff: random Fourier features, the "
-                    "O(n m^2) low-rank path for large n; sde and auto are not yet ported")
+                    "O(n m^2) low-rank path for large n; sde: the O(n log n) state-space "
+                    "path for formulas with a state-space form; auto: routed by n, the "
+                    "formula and the command")
     pp.add_argument("--rff-features", type=int, default=256, metavar="M",
                     help="Features per stationary kernel leaf with --approx rff")
     pp.add_argument("--rff-seed", type=int, default=0)
     pp.add_argument("--sde-window", type=int, default=None, metavar="W",
-                    help="--approx sde knob (not yet ported)")
+                    help="With --approx sde: smooth in overlapping windows of W rows "
+                    "(memory bounded by a window's buffers). Default: 2^14 when the "
+                    "state dim > 24 and the joined rows > 2^15, else 0 (one pass)")
     pp.add_argument("--sde-overlap", type=int, default=None, metavar="V",
-                    help="--approx sde knob (not yet ported)")
+                    help="Context rows on each side of a --sde-window window "
+                    "(default W/8; it should span a few lengthscales)")
     _add_sde_flags(pp)
     _add_outlier_flags(pp)
 
@@ -224,7 +235,9 @@ def build_parser() -> argparse.ArgumentParser:
     pf.add_argument("--jitter", type=float, default=0.1)
     pf.add_argument("--approx", choices=["none", "rff", "sde", "auto"], default="none",
                     help="none: the dense exact model; rff: random Fourier features, the "
-                    "O(n m^2) low-rank path for large n; sde and auto are not yet ported")
+                    "O(n m^2) low-rank path for large n; sde: the O(n log n) state-space "
+                    "path for formulas with a state-space form; auto: routed by n, the "
+                    "formula and the command")
     pf.add_argument("--rff-features", type=int, default=256, metavar="M",
                     help="Features per stationary kernel leaf with --approx rff")
     pf.add_argument("--rff-seed", type=int, default=0)
@@ -234,13 +247,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _add_sde_flags(sub) -> None:
-    """--approx sde knobs (the sde path is not yet ported)."""
+    """--approx sde knobs (the static state-space structure)."""
     sub.add_argument("--sde-harmonics", type=int, default=None, metavar="J",
-                     help="--approx sde knob (not yet ported)")
+                     help="Periodic block harmonics under --approx sde (state dim 2J+1; "
+                     "default 10)")
     sub.add_argument("--sde-rq-nodes", type=int, default=None, metavar="K",
-                     help="--approx sde knob (not yet ported)")
+                     help="RQ block Gamma-mixture nodes under --approx sde (state dim 6K; "
+                     "default 8)")
     sub.add_argument("--sde-soa-max-d", type=int, default=None, metavar="D",
-                     help="--approx sde knob (not yet ported)")
+                     help="Accepted for gaplac_tpu's command lines and does nothing here: "
+                     "the struct-of-arrays scan layout it sizes exists against TPU tile "
+                     "padding and is not ported")
 
 
 def _add_outlier_flags(sub) -> None:
@@ -269,12 +286,14 @@ def main(argv=None) -> int:
     try:
         from gaplac_tpu_torch.cli.common import refuse_unported
 
-        refuse_unported([
-            ("--profile/--profile-dir", args.profile or bool(args.profile_dir)),
-            *((f"--{k.replace('_', '-')}", getattr(args, k, None) is not None)
-              for k in ("sde_harmonics", "sde_rq_nodes", "sde_soa_max_d", "sde_window",
-                        "sde_overlap")),
-        ])
+        refuse_unported([("--profile/--profile-dir", args.profile or bool(args.profile_dir))])
+        # the sde structure knobs, set on every run (to the default when the
+        # flag is absent), before any structure is extracted: a process that
+        # runs several commands must not carry one run's knobs into the next
+        from gaplac_tpu_torch.ops import markov_ss
+
+        markov_ss.set_periodic_harmonics(args.sde_harmonics or markov_ss.DEFAULT_PERIODIC_J)
+        markov_ss.set_rq_nodes(args.sde_rq_nodes or markov_ss.DEFAULT_RQ_MIX_K)
         from gaplac_tpu_torch.runtime import configure
 
         try:

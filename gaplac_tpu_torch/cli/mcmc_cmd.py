@@ -1,7 +1,11 @@
 """`mcmc` command: posterior over kernel hyperparameters on the dense exact
 model, on the low-rank feature-space marginal with ``--approx rff``
-(``--rff-features``, ``--rff-seed``), or on the Laplace marginal with
-``--approx laplace`` (port of ``gaplac_tpu/cli/mcmc_cmd.py``).
+(``--rff-features``, ``--rff-seed``), on the Laplace marginal with
+``--approx laplace``, or on the state-space models with ``--approx sde``
+(the marginal, the Laplace marginal for non-Gaussian likelihoods, the
+whitened model with ``--no-marginalize``; the SqExp/RQ lengthscale guard
+warns after sampling); ``--approx auto`` routes by ``inference/routing.py``
+(port of ``gaplac_tpu/cli/mcmc_cmd.py``).
 
 Same model defaults as the reference (prior Uniform(0,20), latent jitter 0.1,
 obs sigma 1, one shared scalar for all --infer vars), the same chain-table
@@ -39,15 +43,17 @@ from gaplac_tpu_torch.inference.likelihoods import gaussian_obs_sigma2
 from gaplac_tpu_torch.inference.model import build_model, slot_groups_for
 from gaplac_tpu_torch.inference.nuts import run_nuts
 from gaplac_tpu_torch.inference.priors import parse_prior
+from gaplac_tpu_torch.inference.routing import (
+    choose_approx,
+    sde_lengthscale_guard,
+    sde_structure_info,
+)
 from gaplac_tpu_torch.kernels.covariance import compile_formula
 from gaplac_tpu_torch.runtime import Runtime
 
 log = logging.getLogger("gaplac")
 
 HYPER_COL = "ℓ"  # reference chain schema (Turing's ℓ column)
-
-#: report draws per batched call: bounds the (B, n, n) buffers of the report
-REPORT_BATCH = 64
 
 
 def _sync(device: torch.device) -> None:
@@ -57,10 +63,7 @@ def _sync(device: torch.device) -> None:
 
 def run(args, rt: Runtime) -> None:
     log.info("running 'mcmc'")
-    refuse_unported([
-        (f"--approx {args.approx}", args.approx not in ("none", "laplace", "rff")),
-        ("--check-numerics", args.check_numerics),
-    ])
+    refuse_unported([("--check-numerics", args.check_numerics)])
     spec = parse_formula(args.formula)
     df = apply_outlier_policy(load_tables(args.data), args, spec.response)
     ck = compile_formula(spec.formula)
@@ -78,6 +81,20 @@ def run(args, rt: Runtime) -> None:
                            device=device)
     prior_bounds = parse_prior(args.prior)
     shared = args.infer_mode == "shared"
+    if args.approx in ("auto", "sde"):
+        try:
+            groups = slot_groups_for(ck, inferable, shared=shared, infer_extras=infer_extras)
+        except ValueError:
+            groups = ()
+        X_np = X.cpu().numpy()
+        dynamic = {s for g in groups for s in g}
+        if args.approx == "auto":
+            args.approx = choose_approx(ck, X_np, "mcmc", likelihood=spec.likelihood,
+                                        dynamic_slots=dynamic)
+        if args.approx == "sde":
+            # what the accuracy guard reads after sampling
+            d_g, _, st_g = sde_structure_info(ck, X_np, dynamic)
+            args._sde_guard = (ck, X_np, st_g, groups) if d_g is not None and groups else None
     if args.approx == "laplace":
         from gaplac_tpu_torch.inference.laplace import build_laplace_marginal
 
@@ -95,7 +112,7 @@ def run(args, rt: Runtime) -> None:
             ck, inferable, X, y, spec.likelihood, aux=aux, jitter=args.jitter,
             prior_bounds=prior_bounds, shared_hyper=shared,
             marginalize=not args.no_marginalize,
-            approx="rff" if args.approx == "rff" else "exact",
+            approx=args.approx if args.approx in ("rff", "sde") else "exact",
             rff_features=args.rff_features, rff_seed=args.rff_seed, infer_extras=infer_extras,
         )
     log.info("model: %s, sampler dim %d, n=%d obs",
@@ -175,11 +192,11 @@ def run(args, rt: Runtime) -> None:
 
 def _chain_report(model, gen, positions, want_latents=True):
     """(chains, draws, dim) positions -> numpy thetas, latents, lps, in
-    batches of REPORT_BATCH draws."""
+    batches of the model's report_batch draws."""
     C, kept, dim = positions.shape
     flat = positions.reshape(C * kept, dim)
-    parts = [model.report(gen, flat[i:i + REPORT_BATCH])
-             for i in range(0, C * kept, REPORT_BATCH)]
+    B = model.report_batch
+    parts = [model.report(gen, flat[i:i + B]) for i in range(0, C * kept, B)]
 
     def cat(k):
         if not parts:
@@ -225,6 +242,14 @@ def _emit_chains(args, model, n_obs, thetas, fs, lps, accepts=None, depths=None,
         frames.append(pd.DataFrame(cols))
     chain_df = pd.concat(frames, ignore_index=True)
     df_output(chain_df, args.output)
+
+    # sde accuracy guard: SqExp/RQ lengthscale mass in the >0.5-nat error band
+    guard_info = getattr(args, "_sde_guard", None)
+    if guard_info is not None:
+        gck, gX, gst, ggroups = guard_info
+        msg = sde_lengthscale_guard(gck, gst, gX, thetas, ggroups)
+        if msg:
+            print(f"WARNING: {msg}")
 
     for g in range(model.n_hyper):
         name = HYPER_COL if g == 0 else f"{HYPER_COL}_{g+1}"

@@ -1,5 +1,5 @@
 """`predict` command: posterior predictions at --at/--atdata points (port of
-``gaplac_tpu/cli/predict_cmd.py`` for ``--approx none`` and ``rff``).
+``gaplac_tpu/cli/predict_cmd.py``).
 
 Output: the at-variables plus ``ymu`` (posterior mean of the latent GP) and
 ``yQ050``/``yQ950`` (its 5% and 95% quantiles; with --mcmc, of the
@@ -8,8 +8,14 @@ bisection on the mixture CDF).  The draws go through one at a time, so only
 one draw's O(n^2) buffers are alive, as ``lax.map`` keeps it in
 ``gaplac_tpu``.  With ``--approx rff`` each draw is the weight-space
 posterior through the feature map (O(n m^2), one m x m factorization),
-whose Cat vocabularies span both tables.  ``--plot`` draws the posterior
-ribbon (``viz/plots.py``).
+whose Cat vocabularies span both tables.  With ``--approx sde`` the new
+points join the sorted sequence unobserved and one state-space smoothing
+pass gives their posterior, O((n + m) log(n + m)): in windows of
+``--sde-window`` rows with ``--sde-overlap`` context rows (by default 2^14
+rows when the state dimension passes 24 and the joined rows 2^15), whose
+buffers bound the memory.  ``--approx auto`` routes by
+``inference/routing.py`` on the joined rows.  ``--plot`` draws the
+posterior ribbon (``viz/plots.py``).
 """
 
 from __future__ import annotations
@@ -24,21 +30,28 @@ from gaplac_tpu_torch.cli.common import (
     apply_outlier_policy,
     chain_slot_groups,
     design_matrices,
-    refuse_unported,
     resolve_hyper_columns,
     response_vector,
 )
 from gaplac_tpu_torch.data import complete_cases, df_output, load_tables, read_table
 from gaplac_tpu_torch.dsl import build_at_frame, parse_formula
 from gaplac_tpu_torch.inference.likelihoods import gaussian_obs_sigma2
+from gaplac_tpu_torch.inference.model import markov_block_xs, markov_data, markov_param_vals
+from gaplac_tpu_torch.inference.routing import resolve_auto_approx
 from gaplac_tpu_torch.kernels.covariance import compile_formula
 from gaplac_tpu_torch.kernels.features import build_feature_map
-from gaplac_tpu_torch.ops import lowrank, mvn
+from gaplac_tpu_torch.ops import lowrank, markov, mvn
+from gaplac_tpu_torch.ops import markov_ss as mss
 from gaplac_tpu_torch.runtime import Runtime
 
 log = logging.getLogger("gaplac")
 
 MAX_CHAIN_DRAWS = 200  # thin chains beyond this for prediction
+#: --sde-window's default, taken when the state dimension passes
+#: SDE_WINDOW_MIN_D and the joined rows SDE_WINDOW_MIN_ROWS
+SDE_WINDOW = 1 << 14
+SDE_WINDOW_MIN_D = 24
+SDE_WINDOW_MIN_ROWS = 1 << 15
 
 
 def _hyper_draws(chain_path: str, n_hyper: int) -> np.ndarray:
@@ -93,9 +106,47 @@ def lowrank_predict_one(fm, params, X, Xt, y, jitter: float, sigma2: float):
     return mu, torch.clamp(var, min=1e-12)
 
 
+def markov_predictor(args, ck, X, Xt, y, sigma2: float, dynamic_slots=()):
+    """params -> (mean, variance) of the latent at Xt through the
+    state-space smoother of the joined rows (--approx sde); the variance
+    adds the jitter and Noise diagonal."""
+    md = markov_data(ck, X, dynamic_slots=dynamic_slots, rows=torch.cat([X, Xt]))
+    st = md.st
+    n_joined = X.shape[0] + Xt.shape[0]
+    window = args.sde_window
+    if window is None:
+        window = (SDE_WINDOW if md.state_dim > SDE_WINDOW_MIN_D and n_joined > SDE_WINDOW_MIN_ROWS
+                  else 0)
+        if window:
+            log.info("state dim %d > %d at joined n=%d: windowed smoothing on (--sde-window "
+                     "%d; 0 forces monolithic)", md.state_dim, SDE_WINDOW_MIN_D, n_joined, window)
+    if st.time_col >= 0:
+        t_train, t_new = X[:, st.time_col], Xt[:, st.time_col]
+    else:  # no Markov leaf: the transitions do not depend on the step
+        t_train = torch.arange(X.shape[0], dtype=X.dtype, device=X.device)
+        t_new = X.shape[0] + torch.arange(Xt.shape[0], dtype=X.dtype, device=X.device)
+    xs_train, xs_new = markov_block_xs(st, X), markov_block_xs(st, Xt)
+    if st.scalar_ou:
+        idx = torch.as_tensor(st.sort_idx, device=X.device)
+        ts = torch.as_tensor(st.t_sorted, dtype=X.dtype, device=X.device)
+
+    def one(p):
+        j_eff = md.j_eff(p, args.jitter)
+        if st.scalar_ou:
+            mu, var_x = markov.ou_posterior_predict(ts, y[idx], p[st.blocks[0][1]],
+                                                    j_eff + sigma2, t_new)
+        else:
+            mu, var_x = mss.ss_predict(md.kinds, markov_param_vals(ck, st, p), t_train, xs_train,
+                                       y, j_eff + sigma2, t_new, xs_new, order=md.idx,
+                                       resets=md.resets, window=window or None,
+                                       overlap=args.sde_overlap)
+        return mu.to(X.dtype), torch.clamp(var_x + j_eff, min=1e-12).to(X.dtype)
+
+    return one
+
+
 def run(args, rt: Runtime) -> None:
     log.info("running 'predict'")
-    refuse_unported([(f"--approx {args.approx}", args.approx not in ("none", "rff"))])
     device, dtype = rt
     spec = parse_formula(args.formula)
     ck = compile_formula(spec.formula)
@@ -111,6 +162,7 @@ def run(args, rt: Runtime) -> None:
     X_np, Xt_np = design_matrices(df, tdf, ck)
     X = torch.tensor(X_np, dtype=dtype, device=device)
     Xt = torch.tensor(Xt_np, dtype=dtype, device=device)
+    resolve_auto_approx(args, ck, np.vstack([X_np, Xt_np]), "predict", spec)
 
     sigma2 = gaussian_obs_sigma2(spec.likelihood)
     if sigma2 is None:
@@ -127,6 +179,9 @@ def run(args, rt: Runtime) -> None:
     if args.approx == "rff":
         fm = build_feature_map(ck, [X, Xt], num_features=args.rff_features, seed=args.rff_seed)
         one = lambda p: lowrank_predict_one(fm, p, X, Xt, y, args.jitter, sigma2)
+    elif args.approx == "sde":
+        one = markov_predictor(args, ck, X, Xt, y, sigma2,
+                               dynamic_slots={s for g in slot_groups for s in g})
     else:
         one = lambda p: predict_one(ck, p, X, Xt, y, args.jitter, sigma2)
     defaults = ck.default_params(dtype, device)

@@ -1,6 +1,6 @@
 """`sample` command: draw from the GP prior, or from the posterior given
 ``--data``, at the ``--at``/``--atdata`` points (port of
-``gaplac_tpu/cli/sample_cmd.py`` for ``--approx none`` and ``rff``).
+``gaplac_tpu/cli/sample_cmd.py``).
 
 The prior draw factors the gram of the sampled points (kernel K2, then the
 blocked factorization through kernel K3 at n >= 2048, else kernel K1); the
@@ -8,7 +8,12 @@ posterior draw conditions on ``--data``, with the hyperparameters of one
 random ``--mcmc`` chain row.  With ``--approx rff`` no gram is formed: the
 prior draw is Phi w + sqrt(d) eta, the posterior draw Matheron's rule through
 the feature map, whose Cat vocabularies span both tables (``ops/lowrank.py``,
-one m x m factorization).  torch's generator gives other numbers than
+one m x m factorization).  With ``--approx sde`` neither forms a gram: the
+prior draw runs the Gauss-Markov recurrence as an associative scan
+(``ops/markov_ss.py``), the posterior draw is Matheron's rule through the
+state-space smoother of the joined train and test rows, the test rows
+unobserved.  ``--approx auto`` routes by ``inference/routing.py`` on the
+rows the draw covers.  torch's generator gives other numbers than
 ``jax.random`` for the same ``--seed``; the draw is the same function of
 its normal variates.  ``--plot`` draws the samples (``viz/plots.py``).
 """
@@ -16,6 +21,7 @@ its normal variates.  ``--plot`` draws the samples (``viz/plots.py``).
 from __future__ import annotations
 
 import logging
+import math
 
 import numpy as np
 import torch
@@ -25,15 +31,17 @@ from gaplac_tpu_torch.cli.common import (
     chain_slot_groups,
     design_matrices,
     design_matrix,
-    refuse_unported,
     response_vector,
 )
 from gaplac_tpu_torch.data import complete_cases, df_output, load_tables
 from gaplac_tpu_torch.dsl import build_at_frame, parse_formula
 from gaplac_tpu_torch.inference.likelihoods import gaussian_obs_sigma2
+from gaplac_tpu_torch.inference.model import markov_data
+from gaplac_tpu_torch.inference.routing import resolve_auto_approx
 from gaplac_tpu_torch.kernels.covariance import compile_formula
 from gaplac_tpu_torch.kernels.features import build_feature_map
 from gaplac_tpu_torch.ops import lowrank, mvn
+from gaplac_tpu_torch.ops import markov_ss as mss
 from gaplac_tpu_torch.runtime import Runtime
 
 log = logging.getLogger("gaplac")
@@ -41,7 +49,6 @@ log = logging.getLogger("gaplac")
 
 def run(args, rt: Runtime) -> None:
     log.info("running 'sample'")
-    refuse_unported([(f"--approx {args.approx}", args.approx not in ("none", "rff"))])
     spec = parse_formula(args.spec)
     ck = compile_formula(spec.formula)
     if args.atdata:
@@ -58,8 +65,12 @@ def run(args, rt: Runtime) -> None:
     if args.data:
         y = _sample_posterior(args, spec, ck, df, params, gen, rt)
     else:
-        X = torch.tensor(design_matrix(df, ck), dtype=dtype, device=device)
-        if args.approx == "rff":  # f = Phi w + sqrt(jitter + bare Noise) eta, O(n m)
+        X_np = design_matrix(df, ck)
+        resolve_auto_approx(args, ck, X_np, "sample", spec)
+        X = torch.tensor(X_np, dtype=dtype, device=device)
+        if args.approx == "sde":  # the recurrence as a scan, O(n log n)
+            y = _sde_prior_draw(ck, X, params, gen, args.jitter)
+        elif args.approx == "rff":  # f = Phi w + sqrt(jitter + bare Noise) eta, O(n m)
             fm = _feature_map(args, ck, [X])
             y = lowrank.sample_lowrank(gen, fm.phi(params, X),
                                        fm.noise_diag(params, X) + args.jitter)
@@ -93,9 +104,13 @@ def _sample_posterior(args, spec, ck, tdf, params, gen, rt: Runtime) -> torch.Te
     X_np, Xt_np = design_matrices(df, tdf, ck)
     X = torch.tensor(X_np, dtype=dtype, device=device)
     Xt = torch.tensor(Xt_np, dtype=dtype, device=device)
+    # routed on the joined rows, which the conditional draw smooths over
+    resolve_auto_approx(args, ck, np.vstack([X_np, Xt_np]), "sample", spec)
 
+    dynamic_slots = ()
     if args.mcmc:
         slot_groups = chain_slot_groups(ck, args)
+        dynamic_slots = {s for g in slot_groups for s in g}
         draws = _hyper_draws(args.mcmc, n_hyper=len(slot_groups))
         row = int(torch.randint(len(draws), (1,), generator=gen, device=device))
         theta = draws[row]
@@ -113,8 +128,45 @@ def _sample_posterior(args, spec, ck, tdf, params, gen, rt: Runtime) -> torch.Te
         return lowrank.lowrank_conditional_sample_at(
             gen, fm.phi(params, X), fm.noise_diag(params, X) + args.jitter, sigma2, y,
             fm.phi(params, Xt), fm.noise_diag(params, Xt) + args.jitter)
+    if args.approx == "sde":
+        return _sde_posterior_draw(ck, X, Xt, y, params, gen, args.jitter, sigma2, dynamic_slots)
     mu, cov = posterior_at(ck, params, X, Xt, y, args.jitter, sigma2)
     return mvn.sample_mvn(gen, cov, mean=mu, jitter=args.jitter)
+
+
+def _sde_prior_draw(ck, X, params, gen, jitter: float) -> torch.Tensor:
+    """Exact state-space prior draw f = H x* + sqrt(j_eff) z, x* the
+    Gauss-Markov recurrence as an associative scan: O(n log n), no gram.
+    ``params`` (..., n_params) with leading dimensions gives a draw each."""
+    md = markov_data(ck, X)
+    A, Q, H = md.steps(ck, params)
+    path = mss.measure_row(H, mss.ss_prior_sample(gen, A, Q))
+    f = path + torch.sqrt(md.j_eff(params, jitter)) * torch.randn(
+        path.shape, generator=gen, dtype=X.dtype, device=X.device)
+    return f[..., md.inv_idx].to(X.dtype)
+
+
+def _sde_posterior_draw(ck, X, Xt, y, params, gen, jitter: float, sigma2: float,
+                        dynamic_slots=()) -> torch.Tensor:
+    """Matheron's rule through the joined train and test rows:
+    f_t = f*_t + K_tx (K + (j_eff + sigma2) I)^-1 (y - f*_x - eps*), f* a
+    joint prior path and the solve the smoother with the test rows
+    unobserved, O((n + m) log(n + m)), no gram.  ``params`` (...,
+    n_params) with leading dimensions gives a draw each."""
+    n = X.shape[0]
+    md = markov_data(ck, X, dynamic_slots=dynamic_slots, rows=torch.cat([X, Xt]))
+    A, Q, H = md.steps(ck, params)
+    j_eff = md.j_eff(params, jitter)
+    path = mss.measure_row(H, mss.ss_prior_sample(gen, A, Q))
+    f_star = path + torch.sqrt(j_eff) * torch.randn(path.shape, generator=gen,
+                                                    dtype=X.dtype, device=X.device)
+    obs = md.idx < n
+    y_sorted = torch.cat([y, y.new_zeros(Xt.shape[0])])[md.idx]
+    eps = math.sqrt(sigma2) * torch.randn(path.shape, generator=gen, dtype=X.dtype,
+                                          device=X.device)
+    r = torch.where(obs, y_sorted - f_star - eps, 0.0)
+    m_s, _ = mss.ss_smooth(A, Q, H, r, j_eff + sigma2, obs=obs)
+    return (f_star + mss.measure_row(H, m_s))[..., md.inv_idx][..., n:].to(X.dtype)
 
 
 def _feature_map(args, ck, mats):

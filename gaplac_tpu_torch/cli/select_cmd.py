@@ -1,5 +1,5 @@
 """`select` command: model comparison by log2 Bayes factors (port of
-``gaplac_tpu/cli/select_cmd.py`` for ``--approx none`` and ``rff``).
+``gaplac_tpu/cli/select_cmd.py``).
 
 --chains: each model's marginal likelihood is the harmonic mean of 2^lp over
 its chain's ``lp`` (or legacy ``lπ``) column, in log space.
@@ -11,7 +11,11 @@ formula's hyperparameters (``inference/smc.py``; the particles' log
 likelihoods are one batched call through K2 and K1).  With ``--approx rff``
 both take the low-rank feature-space density log N(y; 0, Phi Phi^T + D)
 (``ops/lowrank.py``: the capacitance matrices through K1, or K3's blocked
-route for one of m_total >= 2048).  Positive values favour model 1.
+route for one of m_total >= 2048); with ``--approx sde`` the state-space
+density by parallel Kalman filtering (``ops/markov.py``,
+``ops/markov_ss.py``), whose SMC particles go in chunks sized for their
+(B, n, d, d) scans.  ``--approx auto`` is resolved for each formula on its
+own (``inference/routing.py``).  Positive values favour model 1.
 """
 
 from __future__ import annotations
@@ -22,12 +26,15 @@ import numpy as np
 import torch
 from scipy.special import logsumexp
 
-from gaplac_tpu_torch.cli.common import design_matrix, refuse_unported, response_vector
+from gaplac_tpu_torch.cli.common import design_matrix, response_vector
 from gaplac_tpu_torch.data import complete_cases, load_tables, read_table
 from gaplac_tpu_torch.dsl import parse_formula
 from gaplac_tpu_torch.kernels.covariance import LENGTHSCALE_KINDS, compile_formula
+from gaplac_tpu_torch.inference.model import markov_data
+from gaplac_tpu_torch.inference.routing import choose_approx
 from gaplac_tpu_torch.kernels.features import build_feature_map
-from gaplac_tpu_torch.ops import lowrank, mvn
+from gaplac_tpu_torch.ops import lowrank, markov, mvn
+from gaplac_tpu_torch.ops import markov_ss as mss
 from gaplac_tpu_torch.runtime import Runtime
 
 log = logging.getLogger("gaplac")
@@ -77,6 +84,39 @@ def lowrank_fixed_lp(args, spec, df, rt: Runtime) -> float:
     return float(lowrank.lowrank_logpdf(fm.phi(p, X), fm.noise_diag(p, X) + args.jitter, y))
 
 
+def markov_fixed_lp(spec, df, jitter: float, rt: Runtime) -> float:
+    """log N(y; 0, K + (jitter + Noise) I) of one formula on df at its
+    default parameters, by Kalman filtering (--approx sde), O(n log n)."""
+    ck, X, y = _formula_data(spec, df, rt)
+    p = ck.default_params(rt.dtype, rt.device)
+    md = markov_data(ck, X)
+    ys, j_eff = y[md.idx], md.j_eff(p, jitter)
+    if md.st.scalar_ou:
+        return float(markov.ou_loglik(md.ts, ys, p[md.st.blocks[0][1]], j_eff))
+    A, Q, H = md.steps(ck, p)
+    return float(mss.ss_loglik(A, Q, H, ys, j_eff))
+
+
+def _approx_for(args, spec, df, rt: Runtime) -> str:
+    """--approx, with auto resolved for this formula on its own (the two
+    compared formulas may take different paths)."""
+    if args.approx != "auto":
+        return args.approx
+    ck, X, _ = _formula_data(spec, df, rt)
+    return choose_approx(ck, X.cpu().numpy(), "select", likelihood=spec.likelihood)
+
+
+def formula_lp(args, spec, df, rt: Runtime) -> float:
+    """The fixed-hyperparameter log density of one formula on df by the
+    path --approx names."""
+    approx = _approx_for(args, spec, df, rt)
+    if approx == "rff":
+        return lowrank_fixed_lp(args, spec, df, rt)
+    if approx == "sde":
+        return markov_fixed_lp(spec, df, args.jitter, rt)
+    return fixed_lp(spec, df, args.jitter, rt)
+
+
 def run(args, rt: Runtime) -> float:
     log.info("running 'select'")
     chains, formulae = args.chains, args.formulae
@@ -94,18 +134,14 @@ def run(args, rt: Runtime) -> float:
         lp1 = log2_harmonic_mean(_read_lp(chains[0]))
         lp2 = log2_harmonic_mean(_read_lp(chains[1]))
     elif formulae:
-        refuse_unported([(f"--approx {args.approx}", args.approx not in ("none", "rff"))])
         if not args.data:
             raise ValueError("'select --formulae' requires '--data'")
         spec1, spec2 = parse_formula(formulae[0]), parse_formula(formulae[1])
         df = complete_cases(load_tables(args.data))
         if args.estimator == "smc":
             lp1, lp2 = smc_evidence(args, spec1, df, rt), smc_evidence(args, spec2, df, rt)
-        elif args.approx == "rff":
-            lp1, lp2 = lowrank_fixed_lp(args, spec1, df, rt), lowrank_fixed_lp(args, spec2, df, rt)
         else:
-            lp1 = fixed_lp(spec1, df, args.jitter, rt)
-            lp2 = fixed_lp(spec2, df, args.jitter, rt)
+            lp1, lp2 = formula_lp(args, spec1, df, rt), formula_lp(args, spec2, df, rt)
     else:
         raise ValueError(
             "'select' command requires either '--chains' or '--formulae' arguments"
@@ -125,10 +161,10 @@ def run(args, rt: Runtime) -> float:
 def smc_evidence(args, spec, df, rt: Runtime) -> float:
     """Tempered-SMC log marginal likelihood of one formula, integrating the
     Uniform(0, 20) prior of its --infer (default: every lengthscale-kind
-    leaf, shared) and --infer-extra hyperparameters; on the dense model, or
-    with --approx rff on the low-rank one."""
+    leaf, shared) and --infer-extra hyperparameters; on the dense model, the
+    low-rank one (rff) or the state-space one (sde)."""
     from gaplac_tpu_torch.inference.model import build_model
-    from gaplac_tpu_torch.inference.smc import particle_chunk, smc_log_evidence_gp
+    from gaplac_tpu_torch.inference.smc import smc_log_evidence_gp
 
     ck, X, y = _formula_data(spec, df, rt)
     if args.infer:
@@ -143,16 +179,13 @@ def smc_evidence(args, spec, df, rt: Runtime) -> float:
         lp = fixed_lp(spec, df, args.jitter, rt)
         log.info("SMC: %s has no inferable hyperparameter; fixed logpdf %.4f", spec.formula, lp)
         return lp
-    rff = args.approx == "rff"
+    approx = _approx_for(args, spec, df, rt)
     model = build_model(ck, inferable, X, y, spec.likelihood, jitter=args.jitter,
-                        approx="rff" if rff else "exact", rff_features=args.rff_features,
-                        rff_seed=args.rff_seed, infer_extras=infer_extras)
-    # the particles' buffers are (B, n, n) on the dense model, (B, n, m_total) on rff
-    n = y.shape[0]
-    width = (build_feature_map(ck, [X], num_features=args.rff_features,
-                               seed=args.rff_seed).m_total if rff else n)
+                        approx=approx if approx in ("rff", "sde") else "exact",
+                        rff_features=args.rff_features, rff_seed=args.rff_seed,
+                        infer_extras=infer_extras)
     gen = torch.Generator(device=rt.device).manual_seed(args.seed)
-    res = smc_log_evidence_gp(gen, model, y, particle_chunk(n, width, y.element_size()),
+    res = smc_log_evidence_gp(gen, model, y, model.report_batch,
                               n_particles=args.particles)
     name = f"{spec.response} ~| {spec.formula}"
     if res.final_beta < 1.0:

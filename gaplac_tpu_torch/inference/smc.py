@@ -21,8 +21,8 @@ import numpy as np
 import torch
 from scipy.special import logsumexp
 
-#: the buffers one batched log-likelihood call over the particles may hold;
-#: more particles than that are evaluated in chunks
+#: the buffers one batched call over particles (or a report's draws) may
+#: hold; more than that are evaluated in chunks
 SMC_BATCH_BYTES = 4 << 30
 #: (B, n, width) buffers a GP log likelihood holds at once: the dense gram,
 #: its factor and the factorization's working copy (width n), or the rff
@@ -118,10 +118,11 @@ def run_smc(
     return SMCResult(log_z, parts, stage, beta)
 
 
-def particle_chunk(n: int, width: int, itemsize: int) -> int:
-    """Particles one batched GP log-likelihood call takes at n observations:
-    as many as keep its (B, n, width) buffers within SMC_BATCH_BYTES."""
-    return max(1, SMC_BATCH_BYTES // (_GP_BUFFERS * n * width * itemsize))
+def particle_chunk(n: int, width: int, itemsize: int, buffers: int = _GP_BUFFERS) -> int:
+    """Particles (or draws) one batched GP call takes at n observations: as
+    many as keep its ``buffers`` (B, n, width) buffers within
+    SMC_BATCH_BYTES.  Every model builder sizes its ``report_batch`` so."""
+    return max(1, SMC_BATCH_BYTES // (buffers * n * width * itemsize))
 
 
 def smc_log_evidence_gp(gen: torch.Generator, model, y: torch.Tensor, chunk: int,
@@ -132,7 +133,7 @@ def smc_log_evidence_gp(gen: torch.Generator, model, y: torch.Tensor, chunk: int
     Only the marginalized (Gaussian) models decompose so.  ``y``, the
     observations the model conditions on, gives the draws their dtype and
     device; ``chunk`` particles at most go through the model in one call
-    (``particle_chunk`` for the model's buffers)."""
+    (the model's ``report_batch``)."""
     if not model.marginalized:
         raise ValueError("SMC evidence requires the marginalized (Gaussian) model")
 
