@@ -11,7 +11,7 @@ views), checks that a symmetric K2 output equals its transpose and that K2b
 repeats bit for bit and is one CUDA kernel a call, times each (CUDA events,
 the profiler's device time and, for K2 and K2b, the wrapper's host time)
 beside the one PyTorch call that computes the same function where there is
-one, then drives five paths through
+one, then drives six paths through
 the CLI entry point (``gaplac_tpu_torch.cli.main.main``) on the card, the
 kernels' launch counts set to 0 just before each and read just after:
 
@@ -63,7 +63,23 @@ kernels' launch counts set to 0 just before each and read just after:
    the plain run), the Laplace and whitened HMC runs must accept, and the
    OU, SqExp (C = 8) and quasi-periodic
    (C = 1) value+grad are profiled: wall, device time by op, launches and
-   peak memory.
+   peak memory;
+6. ``--profile``, ``--profile-dir`` and ``--check-numerics`` on path 1's
+   ``mcmc`` (8-chain ChEES, shortened, without flags, with ``--profile``,
+   with both profile flags and with the check: identical tables; the
+   report's command phase within 10 % of the command's wall where no trace
+   is written; CUDA events of K1, K2 and K2b in the trace;
+   NUTS's report names ``mcmc.sample+compile`` and ``mcmc.report``;
+   ``sample``, ``select`` and ``predict`` with both profile flags; an inf
+   response raises FloatingPointError before any table is written); the
+   fused gram -> Cholesky (``ops/fused.py``) at n = 16384, float32, panel
+   2048, its forward and a value+grad against float64 on the card by the
+   float32 rule (K2 at row offsets, K3, K2b), timed beside the two-step
+   ``blocked_cholesky`` of K2's gram, and its forward's peak memory at
+   n = 32768, at most 1.25 times the factor's bytes; K2 at row offsets
+   against its plain version on the panels; the native table IO
+   (``data/fastio.py``) on path 5's 2^20-row table and a chain table,
+   against pandas and the plain writer, byte for byte.
 
 Every phase raises on failure; the script exits non-zero on any failure and
 when no CUDA device is available.  Its last line is one JSON object
@@ -2506,6 +2522,406 @@ def phase_auto(dev):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# path 6: --profile, --profile-dir and --check-numerics; the fused gram ->
+# Cholesky at bench_ops.py's width; the native table IO
+# ---------------------------------------------------------------------------
+
+N_FUSED = 16384       # the fused factorization's n (benchmarks/bench_ops.py's largest)
+N_FUSED_MEM = 32768   # its memory check: the factor alone is 4.29 GB in float32
+FUSED_PANEL = 2048
+FUSED_FORMULA = "y ~| SqExp(:t) * Cat(:g) + Linear(:x) + Noise"  # tests/test_ops.py's
+FUSED_DIAG = 1.1
+#: the fused forward's peak memory above its inputs, at most this many times
+#: the factor's own bytes (the two-step holds K beside L: about twice)
+FUSED_PEAK_FACTOR = 1.25
+#: the phases of --profile must sum to the command's wall within this share
+PROFILE_WALL_TOL = 0.10
+#: CUDA kernel names (the trace's "kernel" events) of K1, K2 and K2b
+KERNEL_SYMBOLS = {"K1": "chol_batched_kernel", "K2": "gram_fwd_kernel",
+                  "K2b": "gram_bwd_kernel", "K3": "chol_tile_kernel"}
+
+
+def profile_report(stdout: str) -> dict:
+    """--profile's report: {phase: seconds}."""
+    lines = stdout.split("phase breakdown:\n")[1].splitlines()
+    return {s.split()[0]: float(s.split()[1].rstrip("s")) for s in lines if s.startswith("  ")}
+
+
+def trace_kernels(trace_dir: Path) -> dict:
+    """CUDA kernel events of the torch.profiler trace in ``trace_dir``, by
+    kernel of the port: {kernel: count}; and the trace's size in bytes."""
+    traces = list(trace_dir.glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"{trace_dir}: {len(traces)} trace files, expected 1")
+    with open(traces[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {"events": {k: sum(sym in name for name in kernels)
+                       for k, sym in KERNEL_SYMBOLS.items()},
+            "cuda_kernel_events": len(kernels), "bytes": traces[0].stat().st_size}
+
+
+def phase_observability(data: Path) -> tuple:
+    """Path 6a and 6b: mcmc on path 1's data (n = 500) without flags, with
+    --profile, with --profile --profile-dir and with --check-numerics
+    (8-chain ChEES, shortened, --seed 1: the four tables must be identical),
+    NUTS with --profile (its report names mcmc.sample+compile and
+    mcmc.report), sample, select and predict with both profile flags (the
+    command's phase in the report, a trace that json.load reads), and a
+    response with an inf cell under --check-numerics,
+    which must raise FloatingPointError before writing its table.  The
+    report's command phase must be within PROFILE_WALL_TOL of the command's
+    wall where no trace is written; a trace is written after the phases
+    end, as in gaplac_tpu, so its cost shows in the walls alone."""
+    import shutil
+
+    import pandas as pd
+
+    from gaplac_tpu_torch.ops import _build
+
+    log(f"[25] path 6: mcmc --profile --profile-dir and --check-numerics, n = {N_OBS}")
+    base = ["--platform", "cuda", "mcmc", "y ~| SqExp(:x)", "--data", str(data), "--infer", "x",
+            "--seed", "1"]
+    # short: the trace of one run holds every CPU op and kernel (396 MB at 10 + 10)
+    chees = ["--no-marginalize", "--sampler", "chees", "--chains", str(CHAINS), "--samples",
+             "5", "--warmup", "5"]
+    trace_dir = OUT_DIR / "trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    # (flags before the command, flags after it)
+    flags = {"plain": ([], []), "profiled": (["--profile"], []),
+             "traced": (["--profile", "--profile-dir", str(trace_dir)], []),
+             "checked": ([], ["--check-numerics"])}
+    out, tables, reports = {"walls_s": {}}, {}, {}
+    _build.reset_counts()
+    for tag, (pre, post) in flags.items():
+        tables[tag] = OUT_DIR / f"chees_{tag}.tsv"
+        t0 = time.perf_counter()
+        stdout = run_cli([*pre, *base, *post, *chees, "--output", str(tables[tag])])
+        out["walls_s"][tag] = time.perf_counter() - t0
+        if pre:
+            reports[tag] = profile_report(stdout)
+    log(f"  ChEES walls (s): {out['walls_s']}; kernel launches {dict(_build.counts)}")
+    out["chees_reports"] = reports
+    log(f"  ChEES --profile reports: {reports}")
+    for tag, report in reports.items():
+        if set(report) != {"mcmc", "mcmc.chees+compile"}:
+            raise AssertionError(f"ChEES --profile phases {sorted(report)}")
+        if report["mcmc.chees+compile"] > report["mcmc"]:
+            raise AssertionError("a phase nested in mcmc outlasts it")
+    wall = out["walls_s"]["profiled"]
+    if abs(reports["profiled"]["mcmc"] - wall) > PROFILE_WALL_TOL * wall:
+        raise AssertionError(f"the phase mcmc ({reports['profiled']['mcmc']:.3f} s) is not "
+                             f"within {PROFILE_WALL_TOL:.0%} of the command's wall {wall:.3f} s")
+    out["trace"] = trace_kernels(trace_dir)
+    log(f"  trace: {out['trace']}")
+    for k in ("K1", "K2", "K2b"):
+        if out["trace"]["events"][k] <= 0:
+            raise AssertionError(f"the --profile-dir trace holds no CUDA event of {k}")
+    same = {tag: tables[tag].read_bytes() == tables["plain"].read_bytes() for tag in tables}
+    log(f"  tables identical to the run without flags: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"--profile or --check-numerics changed the table: {same}")
+    t0 = time.perf_counter()
+    stdout = run_cli(["--profile", *base, "--samples", "20", "--warmup", "20",
+                      "--output", str(OUT_DIR / "nuts_profiled.tsv")])
+    wall = time.perf_counter() - t0
+    out["nuts_report"] = report = profile_report(stdout)
+    log(f"  NUTS --profile report: {report}; wall {wall:.3f} s")
+    if set(report) != {"mcmc", "mcmc.sample+compile", "mcmc.report"}:
+        raise AssertionError(f"NUTS --profile phases {sorted(report)}")
+    if abs(report["mcmc"] - wall) > PROFILE_WALL_TOL * wall:
+        raise AssertionError(f"the phase mcmc ({report['mcmc']:.3f} s) is not within "
+                             f"{PROFILE_WALL_TOL:.0%} of the command's wall {wall:.3f} s")
+    # both flags on sample, select and predict (fitplot draws with matplotlib,
+    # which this script does not require; its flags are tested on the CPU)
+    others = {
+        "sample": ["sample", "y :~| SqExp(:x; l=1.5)", "--at", "x=-5:0.01:5", "--seed", "1",
+                   "--output", str(OUT_DIR / "sample_profiled.tsv")],
+        "select": ["select", "--formulae", "y ~| SqExp(:x)", "y ~| OU(:x)", "--data",
+                   str(data)],
+        "predict": ["predict", "y ~| SqExp(:x)", "--data", str(data), "--at", "x=-5:0.1:5",
+                    "--output", str(OUT_DIR / "predict_profiled.tsv")],
+    }
+    out["other_commands"] = {}
+    for name, argv in others.items():
+        cmd_dir = OUT_DIR / f"trace_{name}"
+        shutil.rmtree(cmd_dir, ignore_errors=True)
+        t0 = time.perf_counter()
+        stdout = run_cli(["--platform", "cuda", "--profile", "--profile-dir", str(cmd_dir),
+                          *argv])
+        wall = time.perf_counter() - t0
+        report, trace = profile_report(stdout), trace_kernels(cmd_dir)
+        out["other_commands"][name] = {"wall_s": wall, "report": report, "trace": trace}
+        log(f"  {name} --profile --profile-dir: wall {wall:.3f} s, report {report}, trace "
+            f"{trace}")
+        # the command's phase and a trace that json.load reads; CUDA events are
+        # held on the ChEES trace above: the profiler on the card drops a short
+        # session's kernel records now and then
+        if name not in report:
+            raise AssertionError(f"{name}: no {name} phase in --profile's report {report}")
+    # a response with an inf cell: every log density is NaN
+    df = pd.read_csv(data, sep="\t")
+    df.loc[3, "y"] = np.inf
+    bad, bad_out = OUT_DIR / "data_inf.tsv", OUT_DIR / "inf_chain.tsv"
+    df.to_csv(bad, sep="\t", index=False)
+    argv = ["--platform", "cuda", "mcmc", "y ~| SqExp(:x)", "--data", str(bad), "--infer", "x",
+            "--sampler", "hmc", "--leapfrogs", "8", "--samples", "5", "--warmup", "5",
+            "--check-numerics", "--output", str(bad_out)]
+    try:
+        run_cli(argv)
+    except FloatingPointError as e:
+        out["nan_case"] = str(e)
+        log(f"  inf response with --check-numerics: FloatingPointError: {e}")
+    else:
+        raise AssertionError("--check-numerics did not raise on a NaN log density")
+    if bad_out.exists():
+        raise AssertionError("--check-numerics wrote a table before raising")
+    return dict(_build.counts), out
+
+
+def fused_inputs(n: int, dev, dtype, seed: int = 3):
+    """X (n, 3) as tests/test_ops.py makes it, the formula's default params,
+    and a response y, on the card."""
+    from gaplac_tpu_torch import parse_formula
+    from gaplac_tpu_torch.kernels.covariance import compile_formula
+
+    ck = compile_formula(parse_formula(FUSED_FORMULA).formula)
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 3))
+    X[:, 1] = np.floor(np.abs(X[:, 1]) * 2)
+    y = rng.normal(size=n)
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+    return ck, ck.default_params(dtype, dev), as_t(X), as_t(y)
+
+
+def peak_above(fn) -> tuple:
+    """(fn's result, its peak device memory above what was allocated before)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def events_ms(fn, reps: int) -> float:
+    """Median of ``reps`` calls, each timed by CUDA events after a warmup."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def kernel_split(fn, calls: int) -> dict:
+    """Device time a call of fn (the profiler's fullest of two windows): the
+    total, the port's kernels' time and launches by kernel, and the five
+    kernels that took the most."""
+    kernels = {e.key: (e.self_device_time_total / 1e3 / calls, e.count / calls)
+               for e in profiled(fn, calls, windows=2)
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    ours = {}
+    for k, sym in KERNEL_SYMBOLS.items():
+        hit = [v for name, v in kernels.items() if sym in name]
+        if hit:
+            ours[k] = {"device_ms": sum(ms for ms, _ in hit), "launches": sum(c for _, c in hit)}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:5]
+    return {"device_ms": sum(ms for ms, _ in kernels.values()),
+            "cuda_kernels": sum(c for _, c in kernels.values()), "port_kernels": ours,
+            "top": [[name[:90], ms, count] for name, (ms, count) in top]}
+
+
+def phase_fused(dev) -> tuple:
+    """Path 6c: fused_gram_cholesky and mvn_logpdf_fused at n = 16384,
+    float32, panel 2048, against float64 on the card (the float32 rule: the
+    plain runs put every kernel's plain version in its place), timed beside
+    the two-step blocked_cholesky(K2 gram); the forward's peak memory at
+    n = 32768 against the factor's bytes; K2 at row offsets against its plain
+    version on the panels."""
+    from gaplac_tpu_torch.ops import _build
+    from gaplac_tpu_torch.ops.cholesky import blocked_cholesky
+    from gaplac_tpu_torch.ops.fused import fused_gram_cholesky, mvn_logpdf_fused
+    from gaplac_tpu_torch.ops.gram import gram_bwd_cuda, gram_bwd_plain, gram_cuda, gram_plain
+
+    n = N_FUSED
+    log(f"[26] path 6: the fused gram -> Cholesky, {FUSED_FORMULA}, n = {n}, panel "
+        f"{FUSED_PANEL}, on the card")
+    out = {}
+    # K2 at row offsets on the fused factorization's panels, against its plain version
+    ck, p64, X64, y64 = fused_inputs(n, dev, torch.float64)
+    p32, X32 = p64.float(), X64.float()
+    for j0 in (0, n // 2, n - FUSED_PANEL):
+        j1 = j0 + FUSED_PANEL
+        args = lambda p, X: (ck, p[None], X[j0:], X[j0:j1], FUSED_DIAG)
+        ref = gram_plain(*args(p64, X64), offsets=(j0, j0))
+        err = check_accuracy(f"K2 at row offsets ({j0}, {j0}), (1, {n - j0}, {FUSED_PANEL})",
+                             gram_cuda(*args(p32, X32), offsets=(j0, j0)),
+                             gram_plain(*args(p32, X32), offsets=(j0, j0)), ref)
+        out.setdefault("k2_offsets_err", {})[j0] = err
+    # K2 on two of the forward's panels; K2b at the first panel's shape (off the
+    # path) and at the backward's symmetric (1, n, n); bytes: inputs once, outputs once
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows = {}
+    for j0 in (0, n // 2):
+        m = n - j0
+        rows[f"K2 panel (1, {m}, {FUSED_PANEL})"] = (
+            lambda j0=j0: gram_cuda(ck, p32[None], X32[j0:], X32[j0:j0 + FUSED_PANEL],
+                                    FUSED_DIAG, offsets=(j0, j0)),
+            lambda j0=j0: gram_plain(ck, p32[None], X32[j0:], X32[j0:j0 + FUSED_PANEL],
+                                     FUSED_DIAG, offsets=(j0, j0)),
+            None, 12 * m * FUSED_PANEL, m * FUSED_PANEL * 4 + 4 * 3 * (m + FUSED_PANEL))
+    G_panel = torch.randn((1, n, FUSED_PANEL), generator=gen, device=dev)
+    G_full = torch.randn((1, n, n), generator=gen, device=dev)
+    rows[f"K2b panel (1, {n}, {FUSED_PANEL})"] = (
+        lambda: gram_bwd_cuda(ck, p32[None], X32, X32[:FUSED_PANEL], G_panel, offsets=(0, 0)),
+        lambda: gram_bwd_plain(ck, p32[None], X32, X32[:FUSED_PANEL], G_panel,
+                               offsets=(0, 0)),
+        None, 20 * n * FUSED_PANEL, n * FUSED_PANEL * 4 + 4 * 3 * (n + FUSED_PANEL))
+    rows[f"K2b backward (1, {n}, {n})"] = (
+        lambda: gram_bwd_cuda(ck, p32[None], X32, None, G_full),
+        lambda: gram_bwd_plain(ck, p32[None], X32, None, G_full),
+        None, 20 * n * n, n * n * 4 + 4 * 3 * n)
+    out["panel_rows"] = time_rows(rows)
+    del G_panel, G_full
+
+    # the forward and a value+grad: the card's float32 kernels, the float32
+    # plain versions and float64 plain versions (the reference)
+    y32 = y64.float()
+
+    def forward(p, X):
+        return fused_gram_cholesky(ck, FUSED_DIAG, FUSED_PANEL, p, X)
+
+    def value_grad(p, X, y):
+        pr = p.clone().requires_grad_()
+        v = mvn_logpdf_fused(ck, pr, X, y, FUSED_DIAG, FUSED_PANEL)
+        (g,) = torch.autograd.grad(v, pr)
+        return v.detach(), g
+
+    with plain_kernels():
+        L_ref = forward(p64, X64)
+        v_ref, g_ref = value_grad(p64, X64, y64)
+        L_plain = forward(p32, X32)
+        v_plain, g_plain = value_grad(p32, X32, y32)
+    _build.reset_counts()
+    L, fwd_peak = peak_above(lambda: forward(p32, X32))
+    fwd_launches = dict(_build.counts)
+    _build.reset_counts()
+    (v, g), vg_peak = peak_above(lambda: value_grad(p32, X32, y32))
+    vg_launches = dict(_build.counts)
+    log(f"  launches: forward {fwd_launches}, value+grad {vg_launches}")
+    out["errors"] = {
+        "factor": check_accuracy("fused factor, card f32 against card f64 plain", L, L_plain,
+                                 L_ref),
+        "value": check_accuracy("fused log density", v, v_plain, v_ref),
+        "grad": check_accuracy("fused dtheta", g, g_plain, g_ref)}
+    if float(L.triu(1).abs().max()) != 0.0:
+        raise AssertionError("the fused factor has entries above its diagonal")
+    del L_ref, L_plain, L
+    require_launches("path 6 (fused forward)", fwd_launches, ("K2", "K3"))
+    require_launches("path 6 (fused value+grad)", vg_launches, ("K2", "K2b", "K3"))
+    two_step = lambda: blocked_cholesky(gram_cuda(ck, p32[None], X32, None, FUSED_DIAG)[0])
+    _, two_peak = peak_above(two_step)
+    factor_bytes = n * n * 4
+    flops = n ** 3 / 3
+    b, by = bound_ms(flops, factor_bytes + X32.numel() * 4)
+    timed = {}
+    for name, fn, reps, calls in (("fused forward", lambda: forward(p32, X32), 5, 2),
+                                  ("two-step", two_step, 5, 2),
+                                  ("fused forward again", lambda: forward(p32, X32), 5, 2),
+                                  ("fused value+grad", lambda: value_grad(p32, X32, y32), 3, 1)):
+        timed[name] = {"events_ms": events_ms(fn, reps), **kernel_split(fn, calls)}
+        log(f"  {name}: events {timed[name]['events_ms']:.3f} ms (median of {reps}); device "
+            f"{timed[name]['device_ms']:.3f} ms in {timed[name]['cuda_kernels']:.0f} CUDA "
+            f"kernels; the port's kernels {timed[name]['port_kernels']}")
+        for kname, ms, count in timed[name]["top"]:
+            log(f"    {ms:.3f} ms in {count:.0f} x {kname}")
+    out.update({
+        "forward": {"peak_bytes_above_inputs": fwd_peak, "launches": fwd_launches,
+                    "bound_ms": b, "bound_by": by, **timed["fused forward"],
+                    "again": timed["fused forward again"]},
+        "two_step": {"peak_bytes_above_inputs": two_peak, **timed["two-step"]},
+        "value_grad": {"peak_bytes_above_inputs": vg_peak, "launches": vg_launches,
+                       **timed["fused value+grad"]},
+        "factor_bytes": factor_bytes})
+    log(f"  peak memory above the inputs (GB): forward {fwd_peak / 1e9:.3f}, two-step "
+        f"{two_peak / 1e9:.3f}, value+grad {vg_peak / 1e9:.3f}; the factor "
+        f"{factor_bytes / 1e9:.3f}; bound {b:.3f} ms ({by})")
+
+    # the memory check at n = 32768
+    del ck, p64, X64, y64, X32, y32
+    torch.cuda.empty_cache()
+    m = N_FUSED_MEM
+    ck, p32, X32, _ = fused_inputs(m, dev, torch.float32)
+    L, peak = peak_above(lambda: fused_gram_cholesky(ck, FUSED_DIAG, FUSED_PANEL, p32, X32))
+    finite = bool(torch.isfinite(L.diagonal()).all())
+    del L
+    torch.cuda.empty_cache()
+    _, peak2 = peak_above(lambda: blocked_cholesky(
+        gram_cuda(ck, p32[None], X32, None, FUSED_DIAG)[0]))
+    torch.cuda.empty_cache()
+    fb = m * m * 4
+    out["n32768"] = {"forward_peak_bytes": peak, "two_step_peak_bytes": peak2,
+                     "factor_bytes": fb, "ratio": peak / fb, "two_step_ratio": peak2 / fb}
+    log(f"  n = {m}: forward peak above the inputs {peak / 1e9:.3f} GB = {peak / fb:.3f} x the "
+        f"factor's {fb / 1e9:.3f} GB; two-step {peak2 / 1e9:.3f} GB = {peak2 / fb:.3f} x")
+    if not finite:
+        raise AssertionError(f"the fused factor at n = {m} is not finite")
+    if peak > FUSED_PEAK_FACTOR * fb:
+        raise AssertionError(f"the fused forward's peak at n = {m} is {peak / fb:.3f} x the "
+                             f"factor's bytes (at most {FUSED_PEAK_FACTOR})")
+    return {"forward": fwd_launches, "value+grad": vg_launches}, out
+
+
+def phase_fastio() -> dict:
+    """Path 6d: the native reader and writer on path 5's 2^20-row data table
+    and path 1's ChEES chain table (n_obs + 6 columns): read against pandas,
+    write against the plain Python writer, the written files byte for byte."""
+    import pandas as pd
+
+    from gaplac_tpu_torch.data import fastio
+    from gaplac_tpu_torch.data import io as tio
+
+    log("[27] path 6: the native table IO (data/fastio.py) against pandas and the plain writer")
+    out = {}
+    for name, path in (("data 2^20 rows", OUT_DIR / f"data_ou_{N_OU}.tsv"),
+                       ("chain", OUT_DIR / "chees_whitened.tsv")):
+        t0 = time.perf_counter()
+        names, arr = fastio.read_numeric(str(path), "\t")
+        t_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = pd.read_csv(path, sep="\t", float_precision="round_trip")
+        t_pandas = time.perf_counter() - t0
+        if names != list(ref.columns) or not np.array_equal(arr, ref.to_numpy(np.float64),
+                                                           equal_nan=True):
+            raise AssertionError(f"{name}: the native reader differs from pandas")
+        native, plain = OUT_DIR / f"fastio_{path.stem}.tsv", OUT_DIR / f"plain_{path.stem}.tsv"
+        t0 = time.perf_counter()
+        fastio.write_numeric(str(native), "\t", names, arr)
+        w_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tio._write_numeric(str(plain), "\t", ref)
+        w_plain = time.perf_counter() - t0
+        same = native.read_bytes() == plain.read_bytes() == path.read_bytes()
+        out[name] = {"shape": list(arr.shape), "read_native_s": t_native,
+                     "read_pandas_s": t_pandas, "write_native_s": w_native,
+                     "write_plain_s": w_plain, "bytes": native.stat().st_size,
+                     "identical": same}
+        log(f"  {name} {arr.shape}: read native {t_native:.3f} s, pandas {t_pandas:.3f} s; "
+            f"write native {w_native:.3f} s, plain {w_plain:.3f} s; files identical {same}")
+        if not same:
+            raise AssertionError(f"{name}: the native and plain writers wrote different bytes")
+        native.unlink()
+        plain.unlink()
+    return out
+
+
 def gram_times(dev) -> dict:
     """Only K2 and K2b at phase 5's shapes (``--gram-times``): the wrapper's
     host time, CUDA-event time, the profiler's device time and the bound.
@@ -2662,6 +3078,13 @@ def main() -> int:
     path5_launches.update({f"longitudinal {k}": v for k, v in lo_launches.items()})
     auto_launches, path5["auto"] = phase_auto(dev)
     path5_launches.update({f"auto {k}": v for k, v in auto_launches.items()})
+    # path 6, each part with the launch counts set to 0 just before it
+    path6_launches, path6 = {}, {}
+    path6_launches["observability"], path6["observability"] = phase_observability(
+        OUT_DIR / "data.tsv")
+    fused_launches, path6["fused"] = phase_fused(dev)
+    path6_launches.update({f"fused {k}": v for k, v in fused_launches.items()})
+    path6["fastio"] = phase_fastio()
     kernels = []
     for key, name, src, replaces, err in (
         ("K1", "K1 chol_batched", "gaplac_tpu_torch/csrc/chol_batched.cu",
@@ -2676,7 +3099,8 @@ def main() -> int:
         by_path = {"mcmc": mcmc_launches[key], "sample_select_predict": big_launches[key],
                    **{f"path3 {k}": v[key] for k, v in path3_launches.items()},
                    **{f"path4 {k}": v[key] for k, v in path4_launches.items()},
-                   **{f"path5 {k}": v[key] for k, v in path5_launches.items()}}
+                   **{f"path5 {k}": v[key] for k, v in path5_launches.items()},
+                   **{f"path6 {k}": v[key] for k, v in path6_launches.items()}}
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                "launches": sum(by_path.values()), "launches_by_path": by_path,
                "max_abs_err": err, **times[key]}
@@ -2691,14 +3115,22 @@ def main() -> int:
             row["large_shapes"] = {k: times[k] for k in
                                    ("K1 (8,512,512)", "K1 (8,2048,2048)", "K1 (1,4096,4096)")}
             row["large_shapes"]["capacitance_max_abs_err"] = path4["mcmc"]["k1_capacitance_err"]
+        fused = path6["fused"]
         if key == "K2":
             row["C1"] = times["K2 C=1"]
             row["path2"] = {"max_abs_err": path2_checks["K2"], **times["K2 n=4096"]}
             row["cross"] = times["K2 cross"]
+            row["fused_panels"] = {"max_abs_err": fused["k2_offsets_err"],
+                                   **{k: v for k, v in fused["panel_rows"].items()
+                                      if k.startswith("K2 ")}}
         if key == "K2b":
             row["C1"] = times["K2b C=1"]
+            row["fused"] = {"in_value_grad": fused["value_grad"]["port_kernels"].get("K2b"),
+                            **{k: v for k, v in fused["panel_rows"].items()
+                               if k.startswith("K2b ")}}
         if key == "K3":
             row["blocked_cholesky_n4096"] = times["blocked"]
+            row["fused_forward"] = fused["forward"]["port_kernels"].get("K3")
         kernels.append(row)
         if key in ("K1", "K2"):  # the same kernel at SMC's particle batch
             kernels.append({
@@ -2714,6 +3146,7 @@ def main() -> int:
     log("path 3: " + json.dumps(path3, default=str))
     log("path 4: " + json.dumps(path4, default=str))
     log("path 5: " + json.dumps(path5, default=str))
+    log("path 6: " + json.dumps(path6, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

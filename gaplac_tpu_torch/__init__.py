@@ -10,7 +10,9 @@ On a CUDA device the dense hot path (gram, its backward, the batched
 Cholesky, the base tile of the blocked Cholesky) runs through the hand-written kernels in ``csrc/``; on the CPU
 the same wrappers run their plain PyTorch versions.  The low-rank ``--approx
 rff`` path (``kernels/features.py``, ``ops/lowrank.py``) factors its
-capacitance matrices through the same Cholesky kernels.
+capacitance matrices through the same Cholesky kernels.  ``ops/fused.py``
+factors a dense gram left-looking, panel by panel, without materializing
+it (K2 at global row offsets, K3 for the tiles, K2b for the backward).
 """
 
 __version__ = "0.1.0"

@@ -4,7 +4,7 @@
 from __future__ import annotations
 
 import logging
-from typing import Sequence, Tuple
+from typing import Tuple
 
 import numpy as np
 import pandas as pd
@@ -120,13 +120,6 @@ def chain_slot_groups(ck: CompiledKernel, args):
         return slot_groups_for(ck, args.infer or [], shared=args.infer_mode == "shared",
                                infer_extras=extras)
     return default_slot_groups(ck)
-
-
-def refuse_unported(flags: Sequence[Tuple[str, bool]]) -> None:
-    """Raise "not yet ported" naming every flag in ``flags`` that is on."""
-    unported = [flag for flag, on in flags if on]
-    if unported:
-        raise NotImplementedError(f"{', '.join(unported)}: not yet ported to gaplac_tpu_torch")
 
 
 def apply_outlier_policy(df: pd.DataFrame, args, response: str) -> pd.DataFrame:

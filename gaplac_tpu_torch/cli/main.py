@@ -6,9 +6,10 @@ The five commands (``sample``, ``mcmc``, ``select``, ``predict`` and
 ``mcmc --approx laplace``), the low-rank feature path (``--approx rff``)
 and the state-space path (``--approx sde``, with its ``--sde-*`` knobs), and
 ``--approx auto`` routes between them, with every sampler and estimator and
-the flags and defaults of ``gaplac_tpu``; ``--profile`` and
-``--check-numerics`` raise "not yet ported".  The commands run on the card;
-without one they refuse to start unless given ``--platform cpu``.
+the flags and defaults of ``gaplac_tpu``, ``--profile``/``--profile-dir``
+(``utils/profiling.py``) and ``mcmc --check-numerics`` among them.  The
+commands run on the card; without one they refuse to start unless given
+``--platform cpu``.
 matplotlib is needed only for ``--plot`` and ``fitplot``.
 
 Run as ``python -m gaplac_tpu_torch.cli.main <command> ...``.
@@ -42,9 +43,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--precision", choices=["f32", "f64"], default=None,
                    help="Compute precision (default: f64 on CPU, f32 on CUDA)")
     p.add_argument("--profile", action="store_true",
-                   help="Print a phase wall-clock breakdown (not yet ported)")
+                   help="Print a phase wall-clock breakdown")
     p.add_argument("--profile-dir", default=None, metavar="DIR",
-                   help="Write a profiler trace to DIR (not yet ported)")
+                   help="Also write a torch.profiler trace (CPU and CUDA) to DIR, as a "
+                   "*.pt.trace.json that TensorBoard and Perfetto read")
 
     sub = p.add_subparsers(dest="command", metavar="{sample,mcmc,select,predict,fitplot}")
 
@@ -121,7 +123,9 @@ def build_parser() -> argparse.ArgumentParser:
     pm.add_argument("--progress", action="store_true",
                     help="Print sampler progress lines to stderr")
     pm.add_argument("--check-numerics", action="store_true",
-                    help="NaN/Inf debugging (not yet ported)")
+                    help="Raise FloatingPointError, before any table is written, when the "
+                    "sampler's or the chain report's arrays hold a NaN (gaplac_tpu's "
+                    "jax_debug_nans checks the same arrays)")
     pm.add_argument("--approx", choices=["none", "laplace", "rff", "sde", "auto"],
                     default="none",
                     help="none: the dense exact model; laplace: the Laplace marginal "
@@ -283,10 +287,12 @@ def main(argv=None) -> int:
         build_parser().print_help()
         return 1
 
-    try:
-        from gaplac_tpu_torch.cli.common import refuse_unported
+    from gaplac_tpu_torch.utils import profiling
 
-        refuse_unported([("--profile/--profile-dir", args.profile or bool(args.profile_dir))])
+    profile = args.profile or bool(args.profile_dir)
+    if profile:
+        profiling.enable()
+    try:
         # the sde structure knobs, set on every run (to the default when the
         # flag is absent), before any structure is extracted: a process that
         # runs several commands must not carry one run's knobs into the next
@@ -311,12 +317,19 @@ def main(argv=None) -> int:
         else:
             from gaplac_tpu_torch.cli.mcmc_cmd import run
 
-        run(args, rt)
-    except (ValueError, FileNotFoundError, NotImplementedError) as e:
+        with profiling.trace(args.profile_dir):
+            with profiling.phase(args.command):
+                run(args, rt)
+    except (ValueError, FileNotFoundError) as e:
         log.error("%s", e)
         print(f"error: {e}", file=sys.stderr)
         return 2
+    finally:
+        if profile:
+            profiling.print_report()
+        profiling.reset()  # a next command in this process starts from no phases
     return 0
+
 
 if __name__ == "__main__":
     raise SystemExit(main())

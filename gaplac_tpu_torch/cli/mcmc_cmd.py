@@ -16,6 +16,13 @@ NUTS chains run one after another; ChEES and fixed-trajectory HMC
 (``--sampler hmc``, in segments with ``--segments``) move all chains in
 lockstep; ``--sampler advi`` fits a mean-field Gaussian and reports
 pseudodraws.
+
+``--check-numerics`` checks, for NaN, the arrays that ``gaplac_tpu``'s
+``jax_debug_nans`` checks: the outputs of its jitted sampler run and chain
+report (positions, log densities, accept probabilities, step sizes, mass,
+thetas, latents; ADVI's fit and draws).  A NaN inside a rejected proposal
+does not reach them, in either package.  The phases of ``--profile`` carry
+``gaplac_tpu``'s names, "+compile" included, though nothing compiles here.
 """
 
 from __future__ import annotations
@@ -34,7 +41,6 @@ from gaplac_tpu_torch.cli.common import (
     apply_outlier_policy,
     column_values,
     design_matrix,
-    refuse_unported,
     resolve_hyper_columns,
     response_vector,
 )
@@ -50,6 +56,7 @@ from gaplac_tpu_torch.inference.routing import (
 )
 from gaplac_tpu_torch.kernels.covariance import compile_formula
 from gaplac_tpu_torch.runtime import Runtime
+from gaplac_tpu_torch.utils import profiling
 
 log = logging.getLogger("gaplac")
 
@@ -61,9 +68,29 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def check_numerics(args, arrays) -> None:
+    """With --check-numerics, raise FloatingPointError naming the first of
+    ``arrays`` ((name, tensor, array or number) pairs) that holds a NaN."""
+    if not args.check_numerics:
+        return
+    for name, a in arrays:
+        if a is None:
+            continue
+        t = torch.as_tensor(a)
+        if t.is_floating_point():
+            bad = torch.isnan(t)
+            if bool(bad.any()):
+                where = tuple(int(i) for i in bad.nonzero()[0]) if t.dim() else ()
+                raise FloatingPointError(
+                    f"--check-numerics: invalid value (nan) in the {name}"
+                    + (f", first at index {where}" if where else "")
+                    + f" ({int(bad.sum())} of {t.numel()})")
+
+
 def run(args, rt: Runtime) -> None:
     log.info("running 'mcmc'")
-    refuse_unported([("--check-numerics", args.check_numerics)])
+    if args.check_numerics:
+        log.info("numerics checking enabled (NaN in the sampler's and the report's arrays)")
     spec = parse_formula(args.formula)
     df = apply_outlier_policy(load_tables(args.data), args, spec.response)
     ck = compile_formula(spec.formula)
@@ -156,19 +183,21 @@ def run(args, rt: Runtime) -> None:
 
     t0 = time.time()
     results = []
-    for c in range(n_chains):
-        eps0 = im0 = None
-        if resume_state is not None:
-            eps0 = float(resume_state["step_size"])
-            im = np.asarray(resume_state["inv_mass"])
-            im0 = torch.as_tensor(im[c] if im.ndim == 2 else im, dtype=dtype, device=device)
-        results.append(run_nuts(
-            gen, chain_density, init_positions[c], num_samples, num_warmup=num_warmup,
-            max_depth=args.max_depth, target_accept=args.target_accept,
-            # the chains run in turn, so each prints its own progress lines
-            initial_step_size=eps0, initial_inv_mass=im0, progress=args.progress,
-        ))
-    _sync(device)
+    with profiling.phase("mcmc.sample+compile"):
+        for c in range(n_chains):
+            eps0 = im0 = None
+            if resume_state is not None:
+                eps0 = float(resume_state["step_size"])
+                im = np.asarray(resume_state["inv_mass"])
+                im0 = torch.as_tensor(im[c] if im.ndim == 2 else im, dtype=dtype,
+                                      device=device)
+            results.append(run_nuts(
+                gen, chain_density, init_positions[c], num_samples, num_warmup=num_warmup,
+                max_depth=args.max_depth, target_accept=args.target_accept,
+                # the chains run in turn, so each prints its own progress lines
+                initial_step_size=eps0, initial_inv_mass=im0, progress=args.progress,
+            ))
+        _sync(device)
     elapsed = time.time() - t0
     total = n_chains * (num_samples + num_warmup)
     log.info("sampling done in %.2fs (%.1f transitions/s; %d divergences)", elapsed,
@@ -179,8 +208,17 @@ def run(args, rt: Runtime) -> None:
     accepts = np.stack([r.accept_prob for r in results])[:, sl]
     depths = np.stack([r.depths for r in results])[:, sl]
     divs = np.stack([r.diverging for r in results])[:, sl]
+    check_numerics(args, [
+        ("sampler's positions", torch.stack([r.positions for r in results])),
+        ("sampler's log densities", torch.stack([r.logps for r in results])),
+        ("sampler's accept probabilities", np.stack([r.accept_prob for r in results])),
+        ("sampler's step sizes", np.asarray([r.step_size for r in results])),
+        ("sampler's inverse mass", torch.stack([r.inv_mass for r in results])),
+    ])
 
-    thetas, fs, lps = _chain_report(model, gen, positions, want_latents=not args.no_latents)
+    with profiling.phase("mcmc.report"):
+        thetas, fs, lps = _chain_report(model, gen, positions, want_latents=not args.no_latents)
+    check_report_numerics(args, thetas, fs, lps)
     if args.checkpoint:
         _save_checkpoint(args.checkpoint, positions,
                          step_size=np.asarray([r.step_size for r in results]),
@@ -188,6 +226,11 @@ def run(args, rt: Runtime) -> None:
         log.info("checkpoint written to %s", args.checkpoint)
     _emit_chains(args, model, y.shape[0], thetas, fs, lps, accepts=accepts, depths=depths,
                  divs=divs)
+
+
+def check_report_numerics(args, thetas, fs, lps) -> None:
+    check_numerics(args, [("report's thetas", thetas), ("report's latents", fs),
+                          ("report's log densities", lps)])
 
 
 def _chain_report(model, gen, positions, want_latents=True):
@@ -315,21 +358,24 @@ def _run_lockstep_path(args, model, y, num_samples, num_warmup, gen, rt: Runtime
         segments = 0
 
     t0 = time.time()
-    if kind == "hmc":
-        ckpt_cb = None
-        if segments and args.checkpoint:
-            def ckpt_cb(state):
-                np.savez(args.checkpoint, **state)
+    with profiling.phase("mcmc.hmc-segmented+compile" if kind == "hmc" and segments
+                         else f"mcmc.{kind}+compile"):
+        if kind == "hmc":
+            ckpt_cb = None
+            if segments and args.checkpoint:
+                def ckpt_cb(state):
+                    np.savez(args.checkpoint, **state)
 
-        res = run_hmc(gen, model.logdensity, q0, num_samples, num_warmup=num_warmup,
-                      num_leapfrogs=args.leapfrogs, target_accept=args.target_accept,
-                      init_step_size=eps0, init_inv_mass=im0, progress=args.progress,
-                      segment_size=segments or None, checkpoint_cb=ckpt_cb)
-    else:
-        res = run_chees(gen, model.logdensity, q0, num_samples, num_warmup=num_warmup,
-                        target_accept=args.target_accept, init_step_size=eps0,
-                        init_traj_length=t_len0, init_inv_mass=im0, progress=args.progress)
-    _sync(device)
+            res = run_hmc(gen, model.logdensity, q0, num_samples, num_warmup=num_warmup,
+                          num_leapfrogs=args.leapfrogs, target_accept=args.target_accept,
+                          init_step_size=eps0, init_inv_mass=im0, progress=args.progress,
+                          segment_size=segments or None, checkpoint_cb=ckpt_cb)
+        else:
+            res = run_chees(gen, model.logdensity, q0, num_samples, num_warmup=num_warmup,
+                            target_accept=args.target_accept, init_step_size=eps0,
+                            init_traj_length=t_len0, init_inv_mass=im0,
+                            progress=args.progress)
+        _sync(device)
     elapsed = time.time() - t0
     traj_length = getattr(res, "traj_length", None)
     total = n_chains * (num_samples + num_warmup)
@@ -339,9 +385,16 @@ def _run_lockstep_path(args, model, y, num_samples, num_warmup, gen, rt: Runtime
              traj_length if traj_length is not None else args.leapfrogs * res.step_size,
              float(res.accept_prob.mean()) if res.accept_prob.numel() else float("nan"))
 
+    check_numerics(args, [
+        ("sampler's positions", res.positions), ("sampler's log densities", res.logps),
+        ("sampler's accept probabilities", res.accept_prob),
+        ("sampler's step size", res.step_size), ("sampler's trajectory length", traj_length),
+        ("sampler's inverse mass", res.inv_mass),
+    ])
     sl = slice(args.burnin, None, args.thin)
     positions = res.positions[:, sl]
     thetas, fs, lps = _chain_report(model, gen, positions, want_latents=not args.no_latents)
+    check_report_numerics(args, thetas, fs, lps)
     if args.checkpoint:
         _save_checkpoint(args.checkpoint, positions, step_size=np.asarray(res.step_size),
                          inv_mass=res.inv_mass, traj_length=traj_length)
@@ -363,7 +416,12 @@ def _run_advi_path(args, model, y, num_samples, gen):
     print(f"ADVI converged: final ELBO {elbo:.3f}")
     draws = sample_posterior(gen, result, args.chains * num_samples)
     draws = draws.reshape(args.chains, num_samples, model.dim)
+    check_numerics(args, [("ADVI fit's mean", result.mu), ("ADVI fit's log scale",
+                                                             result.log_sigma),
+                          ("ADVI fit's ELBO trace", result.elbo_trace),
+                          ("ADVI draws", draws)])
     thetas, fs, lps = _chain_report(model, gen, draws, want_latents=not args.no_latents)
+    check_report_numerics(args, thetas, fs, lps)
     _emit_chains(args, model, y.shape[0], thetas, fs, lps)
 
 

@@ -39,10 +39,19 @@
 //     or two double2); other n2 take a scalar path;
 //   * shape parameters (Periodic period, RQ alpha) are read from the
 //     parameter vector, so they may be inferred;
-//   * bare Noise adds p on the global i == j of a symmetric gram and nothing
-//     in a cross gram; bare Constant adds p everywhere
-//     (gaplac_tpu/ops/gram.py:113-118); `diag` (the jitter) is added on
-//     i == j of a symmetric gram.
+//   * bare leaves key on global row ids (gaplac_tpu/ops/gram.py:113-118,
+//     gaplac_tpu/kernels/covariance.py::gram_cross_with_rowids): row i of
+//     X1 is row r1 + i of the data and column j of X2 row r2 + j.  Bare
+//     Noise adds p where r1 + i == r2 + j, and `diag` (the jitter) is added
+//     there too; bare Constant adds p everywhere.  A symmetric gram is
+//     r1 == r2 == 0; a cross gram without offsets keys on nothing, so bare
+//     Noise and `diag` add nothing there.  The left-looking factorization
+//     (ops/fused.py) takes a panel K[j0:, j0:j1] as a cross gram at
+//     offsets (j0, j0), whose diagonal lies inside it.  A thread's 4 x 4
+//     block holds ids that match where r - q == m, m = (r2 - r1) + j0 - i0
+//     from its first row i0 and column j0: a block has a match only where
+//     |m| < 4, so any tile whose row and column ranges overlap can hold one,
+//     and the test is one integer compare an element.
 // K2 launches one group a block over a (tiles, C) grid, with no shared
 // memory and no barrier: 136 blocks at (1, 500, 500), a wave of the card's
 // 132 SMs.
@@ -207,12 +216,19 @@ __device__ __forceinline__ void leaf_grad(const LeafC<T>& k, T a, T b, T& dp, T&
   }
 }
 
-// Where a thread's 4 x 4 block lies in its group's tile, and whether the
-// tile is a diagonal tile of a symmetric gram (the only place of i == j).
+// Where in a thread's 4 x 4 block the global row ids match: element (r, q)
+// where r - q == m (NO_MATCH: none).
 struct Place {
-  int ty, tx;
-  bool dtile;
+  int m;
 };
+constexpr int NO_MATCH = RB;  // |r - q| < RB never reaches it
+
+// m of the block at rows i0.., columns j0.. under the id shift r2 - r1, or
+// NO_MATCH when bare leaves key on nothing
+__device__ __forceinline__ int match_of(int keyed, long long shift, int i0, int j0) {
+  const long long m = shift + j0 - i0;
+  return keyed && m > -RB && m < RB ? static_cast<int>(m) : NO_MATCH;
+}
 
 // A leaf's row inputs a[r] and column inputs b[q] at the thread's rows and
 // columns, for input column col, from global memory (the L1 cache serves a
@@ -252,7 +268,7 @@ __device__ __forceinline__ void mul_leaf(int kind, int col, const LeafC<T>& k, c
     for (int r = 0; r < RB; ++r)
 #pragma unroll
       for (int q = 0; q < RB; ++q)
-        v[r][q] *= kind == K_CONST || (pl.dtile && pl.ty == pl.tx && r == q) ? k.p : T(0);
+        v[r][q] *= kind == K_CONST || r - q == pl.m ? k.p : T(0);
     return;
   }
   T a[RB], b[RB];
@@ -296,7 +312,7 @@ __device__ __forceinline__ void grad_leaf(int kind, int col, const LeafC<T>& k, 
     for (int r = 0; r < RB; ++r)
 #pragma unroll
       for (int q = 0; q < RB; ++q)
-        if (kind == K_CONST || (pl.dtile && pl.ty == pl.tx && r == q)) sp += w[r][q];
+        if (kind == K_CONST || r - q == pl.m) sp += w[r][q];
     return;
   }
   if (kind == K_CAT) return;
@@ -370,7 +386,8 @@ __host__ __device__ __forceinline__ int tiles_of(int n) { return (n + TILE - 1) 
 template <typename T>
 __global__ void __launch_bounds__(GROUP)
 gram_fwd_kernel(const __grid_constant__ Formula f, const T* X1, const T* X2, int n1, int n2,
-                int d, const T* params, int P, T diag, int symmetric, T* out) {
+                int d, const T* params, int P, T diag, int symmetric, int keyed, long long shift,
+                T* out) {
   const int c = blockIdx.y, tid = threadIdx.x;
   int I, J;
   if (symmetric) {
@@ -380,8 +397,8 @@ gram_fwd_kernel(const __grid_constant__ Formula f, const T* X1, const T* X2, int
     I = blockIdx.x / ct;
     J = blockIdx.x - I * ct;
   }
-  const Place pl = {tid / (TILE / RB), tid % (TILE / RB), symmetric && I == J};
-  const int i0 = I * TILE + pl.ty * RB, j0 = J * TILE + pl.tx * RB;
+  const int i0 = I * TILE + tid / (TILE / RB) * RB, j0 = J * TILE + tid % (TILE / RB) * RB;
+  const Place pl = {match_of(keyed, shift, i0, j0)};
   const Inputs<T> in = inputs_at(X1, X2, n1, n2, d, i0, j0);
   const T* pc = params + static_cast<size_t>(c) * P;
   const bool vec = n2 % 4 == 0;  // a row of 4 is one 16-byte access
@@ -405,9 +422,12 @@ gram_fwd_kernel(const __grid_constant__ Formula f, const T* X1, const T* X2, int
 #pragma unroll
       for (int q = 0; q < RB; ++q) acc[r][q] += v[r][q];
   }
-  if (pl.dtile && pl.ty == pl.tx) {
+  if (pl.m != NO_MATCH) {
 #pragma unroll
-    for (int r = 0; r < RB; ++r) acc[r][r] += diag;
+    for (int r = 0; r < RB; ++r)
+#pragma unroll
+      for (int q = 0; q < RB; ++q)
+        if (r - q == pl.m) acc[r][q] += diag;
   }
 
   T* o = out + static_cast<size_t>(c) * n1 * n2;
@@ -457,8 +477,8 @@ __device__ __forceinline__ void cluster_wait() {
 template <typename T>
 __global__ void __launch_bounds__(BWD_THREADS<T>)
 gram_bwd_kernel(const __grid_constant__ Formula f, const T* X1, const T* X2, int n1, int n2,
-                int d, const T* params, int P, int symmetric, int ntiles, const T* gK,
-                T* dparams) {
+                int d, const T* params, int P, int symmetric, int keyed, long long shift,
+                int ntiles, const T* gK, T* dparams) {
   constexpr int WARPS = BWD_THREADS<T> / 32;
   __shared__ T wacc[WARPS][MAX_PARAMS];  // a warp's sums, written by its lane 0 only
   __shared__ T gathered[MAX_CLUSTER][MAX_PARAMS];  // rank 0's: a row from each block
@@ -482,8 +502,8 @@ gram_bwd_kernel(const __grid_constant__ Formula f, const T* X1, const T* X2, int
       I = t / ct;
       J = t - I * ct;
     }
-    const Place pl = {gt / (TILE / RB), gt % (TILE / RB), symmetric && I == J};
-    const int i0 = I * TILE + pl.ty * RB, j0 = J * TILE + pl.tx * RB;
+    const int i0 = I * TILE + gt / (TILE / RB) * RB, j0 = J * TILE + gt % (TILE / RB) * RB;
+    const Place pl = {match_of(keyed, shift, i0, j0)};
     const Inputs<T> in = inputs_at(X1, X2, n1, n2, d, i0, j0);
     // the weights: gK, plus its mirror below the diagonal of a symmetric gram
     T w[RB][RB];
@@ -595,15 +615,21 @@ bool read_formula(Formula& f, const int* desc, int L, int NT, int d, int P) {
   return true;
 }
 
+// A symmetric gram is keyed at offsets (0, 0); offsets are not negative.
+bool offsets_ok(int symmetric, int keyed, int r1, int r2) {
+  return r1 >= 0 && r2 >= 0 && (!symmetric || (keyed && r1 == 0 && r2 == 0));
+}
+
 template <typename T>
 int launch_fwd(const void* desc, int L, int NT, const void* X1, const void* X2, int n1, int n2,
-               int d, const void* params, int C, int P, double diag, int symmetric, void* out,
-               int device, void* stream) {
+               int d, const void* params, int C, int P, double diag, int symmetric, int keyed,
+               int r1, int r2, void* out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (C == 0 || n1 == 0 || n2 == 0) return 0;
   Formula f;
-  if (!read_formula(f, static_cast<const int*>(desc), L, NT, d, P) || (symmetric && n1 != n2))
+  if (!read_formula(f, static_cast<const int*>(desc), L, NT, d, P) || (symmetric && n1 != n2) ||
+      !offsets_ok(symmetric, keyed, r1, r2))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long rt = tiles_of(n1), ct = tiles_of(n2);
   const long long blocks = symmetric ? rt * (rt + 1) / 2 : rt * ct;
@@ -611,7 +637,8 @@ int launch_fwd(const void* desc, int L, int NT, const void* X1, const void* X2, 
   gram_fwd_kernel<T><<<dim3(static_cast<unsigned>(blocks), C), GROUP, 0,
            static_cast<cudaStream_t>(stream)>>>(
       f, static_cast<const T*>(X1), static_cast<const T*>(X2), n1, n2, d,
-      static_cast<const T*>(params), P, static_cast<T>(diag), symmetric, static_cast<T*>(out));
+      static_cast<const T*>(params), P, static_cast<T>(diag), symmetric, keyed,
+      static_cast<long long>(r2) - r1, static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -652,14 +679,14 @@ int bwd_cluster(int device, int C) {
 
 template <typename T>
 int launch_bwd(const void* desc, int L, int NT, const void* X1, const void* X2, int n1, int n2,
-               int d, const void* params, int C, int P, int symmetric, const void* gK,
-               void* dparams, int device, void* stream) {
+               int d, const void* params, int C, int P, int symmetric, int keyed, int r1, int r2,
+               const void* gK, void* dparams, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (C == 0 || P == 0) return 0;
   Formula f;
   if (!read_formula(f, static_cast<const int*>(desc), L, NT, d, P) || (symmetric && n1 != n2) ||
-      C > 65535)
+      !offsets_ok(symmetric, keyed, r1, r2) || C > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long rt = tiles_of(n1), ct = tiles_of(n2);
   const long long ntiles = symmetric ? rt * (rt + 1) / 2 : rt * ct;
@@ -680,7 +707,8 @@ int launch_bwd(const void* desc, int L, int NT, const void* X1, const void* X2, 
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, gram_bwd_kernel<T>, f, static_cast<const T*>(X1),
                            static_cast<const T*>(X2), n1, n2, d, static_cast<const T*>(params),
-                           P, symmetric, static_cast<int>(ntiles), static_cast<const T*>(gK),
+                           P, symmetric, keyed, static_cast<long long>(r2) - r1,
+                           static_cast<int>(ntiles), static_cast<const T*>(gK),
                            static_cast<T*>(dparams));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -691,38 +719,39 @@ int launch_bwd(const void* desc, int L, int NT, const void* X1, const void* X2, 
 
 // out (C, n1, n2) <- gram; desc the int32 formula descriptor in host memory;
 // X1 (n1, d), X2 (n2, d) row-major; params (C, P); a symmetric gram passes
-// X2 == X1
+// X2 == X1 and keyed = 1 at offsets (0, 0); keyed = 1 makes bare leaves and
+// diag key on the global row ids r1 + i and r2 + j
 extern "C" int gaplac_gram_fwd_f32(const void* desc, int L, int NT, const void* X1,
                                    const void* X2, int n1, int n2, int d, const void* params,
-                                   int C, int P, double diag, int symmetric, void* out,
-                                   int device, void* stream) {
+                                   int C, int P, double diag, int symmetric, int keyed, int r1,
+                                   int r2, void* out, int device, void* stream) {
   return gaplac::launch_fwd<float>(desc, L, NT, X1, X2, n1, n2, d, params, C, P, diag,
-                                   symmetric, out, device, stream);
+                                   symmetric, keyed, r1, r2, out, device, stream);
 }
 
 extern "C" int gaplac_gram_fwd_f64(const void* desc, int L, int NT, const void* X1,
                                    const void* X2, int n1, int n2, int d, const void* params,
-                                   int C, int P, double diag, int symmetric, void* out,
-                                   int device, void* stream) {
+                                   int C, int P, double diag, int symmetric, int keyed, int r1,
+                                   int r2, void* out, int device, void* stream) {
   return gaplac::launch_fwd<double>(desc, L, NT, X1, X2, n1, n2, d, params, C, P, diag,
-                                    symmetric, out, device, stream);
+                                    symmetric, keyed, r1, r2, out, device, stream);
 }
 
 // dparams (C, P) = sum_ij gK[c,i,j] dK[c,i,j]/dparams[c,:], one launch
 extern "C" int gaplac_gram_bwd_f32(const void* desc, int L, int NT, const void* X1,
                                    const void* X2, int n1, int n2, int d, const void* params,
-                                   int C, int P, int symmetric, const void* gK, void* dparams,
-                                   int device, void* stream) {
+                                   int C, int P, int symmetric, int keyed, int r1, int r2,
+                                   const void* gK, void* dparams, int device, void* stream) {
   return gaplac::launch_bwd<float>(desc, L, NT, X1, X2, n1, n2, d, params, C, P, symmetric,
-                                   gK, dparams, device, stream);
+                                   keyed, r1, r2, gK, dparams, device, stream);
 }
 
 extern "C" int gaplac_gram_bwd_f64(const void* desc, int L, int NT, const void* X1,
                                    const void* X2, int n1, int n2, int d, const void* params,
-                                   int C, int P, int symmetric, const void* gK, void* dparams,
-                                   int device, void* stream) {
+                                   int C, int P, int symmetric, int keyed, int r1, int r2,
+                                   const void* gK, void* dparams, int device, void* stream) {
   return gaplac::launch_bwd<double>(desc, L, NT, X1, X2, n1, n2, d, params, C, P, symmetric,
-                                    gK, dparams, device, stream);
+                                    keyed, r1, r2, gK, dparams, device, stream);
 }
 
 // The cluster size K2b takes for C chains (8 or 16), or a negative CUDA

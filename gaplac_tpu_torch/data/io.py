@@ -8,9 +8,12 @@ select.jl:16,38 read both true TSVs and the legacy comma-in-.tsv fixtures,
 test/testin/mcmc_109.tsv:1).
 
 All-numeric tables (mcmc chain files: n_obs+8 float columns a row) are
-read as float64 with exact parsing and written in the format of
-``gaplac_tpu``'s native writer (``%.1f`` for integral values, ``%.17g``
-otherwise), so the port writes the same bytes without a compiled extension.
+read and written in one pass by the native reader and writer
+(``native/fastio.cpp`` through ``data/fastio.py``), as ``gaplac_tpu``
+does: float64 with exact parsing, written as ``%.1f`` for integral values
+and ``%.17g`` otherwise, so the port writes the same bytes.  A table with a
+field that is not a number goes to pandas.  ``_write_numeric`` is the
+writer's plain version, which the tests hold it against.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from typing import Optional
 
 import numpy as np
 import pandas as pd
+
+from gaplac_tpu_torch.data import fastio
 
 log = logging.getLogger("gaplac")
 
@@ -43,7 +48,12 @@ def read_table(path: str) -> pd.DataFrame:
     (Julia's CSV.read auto-detects; the legacy chain fixtures are
     comma-delimited despite their .tsv names — SURVEY.md §2.3.2)."""
     path = os.path.expanduser(path)
-    df = pd.read_csv(path, sep=_sniff_sep(path), float_precision="round_trip")
+    sep = _sniff_sep(path)
+    native = fastio.read_numeric(path, sep)
+    if native is not None:
+        names, arr = native
+        return pd.DataFrame(arr, columns=names, copy=False)
+    df = pd.read_csv(path, sep=sep, float_precision="round_trip")
     if all(_is_number(df[c]) for c in df.columns):
         df = df.astype(np.float64)  # an all-numeric table is float, as gaplac_tpu reads it
     return df
@@ -54,7 +64,8 @@ def _is_number(col: pd.Series) -> bool:
 
 
 def _write_numeric(path: str, sep: str, df: pd.DataFrame) -> None:
-    """An all-numeric table as ``gaplac_tpu``'s native writer formats it:
+    """The native writer's plain version: an all-numeric table as
+    ``gaplac_tpu``'s native writer formats it:
     integral values below 1e15 as ``%.1f``, the rest as ``%.17g`` (a NaN
     with its sign bit set as ``-nan``, as C's printf gives it)."""
     flat = df.to_numpy(dtype=np.float64).ravel()
@@ -215,7 +226,8 @@ def df_output(df: pd.DataFrame, output: Optional[str]) -> None:
         else:
             raise ValueError("--output arg must be '.tsv' or '.csv'")
         if len(df.columns) and all(_is_number(df[c]) for c in df.columns):
-            _write_numeric(out, sep, df)
+            fastio.write_numeric(out, sep, [str(c) for c in df.columns],
+                                 df.to_numpy(dtype=np.float64))
         else:
             df.to_csv(out, sep=sep, index=False)
     else:

@@ -269,6 +269,20 @@ class CompiledKernel:
         K = GramBound.apply(p.reshape(-1, p.shape[-1]), self, X1, X2, float(diag))
         return K if params.dim() > 1 else K[0]
 
+    def gram_cross_with_rowids(self, params: torch.Tensor, X1: torch.Tensor, X2: torch.Tensor,
+                               row_ids1: torch.Tensor, row_ids2: torch.Tensor) -> torch.Tensor:
+        """Cross gram whose bare Noise/Constant leaves key on the explicit
+        global row ids ``row_ids1`` (n1,) and ``row_ids2`` (n2,); params (P,)
+        -> (n1, n2) or (C, P) -> (C, n1, n2).  The plain version, always (K2
+        takes ids as the offsets of contiguous ranges: ``ops.gram.gram``'s
+        ``offsets``).  Differentiable through autograd."""
+        from gaplac_tpu_torch.ops.gram import gram_ids_plain
+
+        p = self.full_params(params)
+        K = gram_ids_plain(self, p.reshape(-1, p.shape[-1]), X1, X2,
+                           row_ids1.to(X1.dtype), row_ids2.to(X1.dtype))
+        return K if params.dim() > 1 else K[0]
+
     def bind(self, X: torch.Tensor, dynamic_slots: Sequence[int] = (),
              diag: float = 0.0) -> "BoundGram":
         """Symmetric gram at fixed inputs ``X``: ``bind(X, slots,

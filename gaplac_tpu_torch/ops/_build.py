@@ -43,11 +43,13 @@ _SIGNATURES = {
     "gaplac_chol_batched_f32": (_P, _I, _I, _I, _I, _P),
     "gaplac_chol_batched_f64": (_P, _I, _I, _I, _I, _P),
     "gaplac_gram_fwd_f32": (_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _I, ctypes.c_double,
-                            _I, _P, _I, _P),
+                            _I, _I, _I, _I, _P, _I, _P),
     "gaplac_gram_fwd_f64": (_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _I, ctypes.c_double,
-                            _I, _P, _I, _P),
-    "gaplac_gram_bwd_f32": (_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _I, _P),
-    "gaplac_gram_bwd_f64": (_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _I, _P),
+                            _I, _I, _I, _I, _P, _I, _P),
+    "gaplac_gram_bwd_f32": (_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P,
+                            _P, _I, _P),
+    "gaplac_gram_bwd_f64": (_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P,
+                            _P, _I, _P),
     "gaplac_gram_bwd_cluster": (_I, _I, _I),
     "gaplac_chol_batched_clusters": (_I, _I, _I),
     "gaplac_chol_tile_f32": (_P, _I, _P, _I, _I, _I, _P),

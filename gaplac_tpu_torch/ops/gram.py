@@ -7,7 +7,9 @@ gram instead).  Beside each kernel is its plain PyTorch version:
 ``gram_plain`` evaluates the formula leaf by leaf as
 ``CompiledKernel.gram``/``bind`` do in ``gaplac_tpu``, and ``gram_bwd_plain``
 writes out the closed-form leaf derivatives that K2b implements (not
-autograd, so it checks K2b's formulas).  ``GramBound`` wires both into
+autograd, so it checks K2b's formulas).  A cross gram may take global row
+offsets (r1, r2), on which its bare leaves and ``diag`` key: the fused
+factorization's panels (``ops/fused.py``).  ``GramBound`` wires both into
 autograd.  A CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.
 
@@ -20,7 +22,7 @@ allocation and the launch: K2b is one kernel with no scratch.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,39 +52,76 @@ _MAX_LEAVES, _MAX_TERMS, _MAX_PARAMS = 32, 32, 64  # input columns too: at most 
 # ---------------------------------------------------------------------------
 
 
-def _leaf_inputs(ck: CompiledKernel, li: int, params, X1, X2, symmetric):
+#: a gram's global row offsets (r1, r2): a bare leaf of K[i, j] keys on the
+#: ids r1 + i and r2 + j
+Offsets = Optional[Tuple[int, int]]
+
+
+def _keyed(symmetric: bool, offsets: Offsets) -> tuple:
+    """(keyed, r1, r2): bare leaves and ``diag`` match where r1 + i == r2 + j
+    when keyed, nowhere otherwise; a symmetric gram is keyed at (0, 0), a
+    cross gram without offsets not at all."""
+    if symmetric and offsets is not None:
+        raise ValueError("offsets are for cross grams; a symmetric gram has r1 == r2 == 0")
+    if offsets is None:
+        return int(symmetric), 0, 0
+    r1, r2 = (int(r) for r in offsets)
+    if min(r1, r2) < 0 or max(r1, r2) >= 2**31:
+        raise ValueError(f"row offsets {offsets} outside [0, 2^31)")
+    return 1, r1, r2
+
+
+def _row_ids(n1: int, n2: int, keyed: tuple, dtype, device):
+    """The ids bare Noise/Constant leaves key on, from ``_keyed``'s triple:
+    r1 + i and r2 + j when keyed, else ids that never match."""
+    on, r1, r2 = keyed
+    ids1 = torch.arange(r1, r1 + n1, dtype=dtype, device=device)
+    if on:
+        return ids1, torch.arange(r2, r2 + n2, dtype=dtype, device=device)
+    return ids1, torch.full((n2,), -1.0, dtype=dtype, device=device)
+
+
+def _leaf_inputs(ck: CompiledKernel, li: int, params, X1, X2, ids):
     """(x1, x2, p, e) for leaf ``li``; p, e shaped (C, 1, 1).  Bare leaves key
-    on row identity; in a cross gram their ids never match."""
+    on the row ids ``ids``."""
     col = ck.cols[li]
-    if col >= 0:
-        x1, x2 = X1[:, col], X2[:, col]
-    else:
-        x1 = torch.arange(X1.shape[0], dtype=X1.dtype, device=X1.device)
-        x2 = (torch.arange(X2.shape[0], dtype=X1.dtype, device=X1.device) if symmetric
-              else torch.full((X2.shape[0],), -1.0, dtype=X1.dtype, device=X1.device))
+    x1, x2 = (X1[:, col], X2[:, col]) if col >= 0 else ids
     p = params[:, li, None, None]
     es = ck.extra_slots[li]
     e = params[:, es[0], None, None] if es else None
     return x1, x2, p, e
 
 
-def gram_plain(ck: CompiledKernel, params: torch.Tensor, X1: torch.Tensor,
-               X2: Optional[torch.Tensor] = None, diag: float = 0.0) -> torch.Tensor:
-    """params (C, n_params) -> (C, n1, n2); ``diag`` on i == j when symmetric."""
-    symmetric = X2 is None
-    X2v = X1 if symmetric else X2
-    C, n1, n2 = params.shape[0], X1.shape[0], X2v.shape[0]
+def gram_ids_plain(ck: CompiledKernel, params: torch.Tensor, X1: torch.Tensor,
+                   X2: torch.Tensor, ids1: torch.Tensor, ids2: torch.Tensor,
+                   diag: float = 0.0) -> torch.Tensor:
+    """params (C, n_params) -> (C, n1, n2), bare leaves keyed on the row ids
+    ``ids1`` (n1,) and ``ids2`` (n2,), ``diag`` added where they match."""
+    C, n1, n2 = params.shape[0], X1.shape[0], X2.shape[0]
     K = torch.zeros((C, n1, n2), dtype=params.dtype, device=params.device)
     for term in ck.terms:
         block = None
         for li in term:
-            x1, x2, p, e = _leaf_inputs(ck, li, params, X1, X2v, symmetric)
+            x1, x2, p, e = _leaf_inputs(ck, li, params, X1, X2, (ids1, ids2))
             b = _leaf_cross(ck.kinds[li], x1, x2, p, e)
             block = b if block is None else block * b
         K = K + block
-    if symmetric and diag:
-        K = K + diag * torch.eye(n1, dtype=K.dtype, device=K.device)
+    if diag:
+        K = K + diag * (ids1[:, None] == ids2[None, :]).to(K.dtype)
     return K
+
+
+def gram_plain(ck: CompiledKernel, params: torch.Tensor, X1: torch.Tensor,
+               X2: Optional[torch.Tensor] = None, diag: float = 0.0,
+               offsets: Offsets = None) -> torch.Tensor:
+    """params (C, n_params) -> (C, n1, n2); ``diag`` on i == j when symmetric,
+    on r1 + i == r2 + j under ``offsets`` (r1, r2), nowhere in a cross gram
+    without them."""
+    symmetric = X2 is None
+    X2v = X1 if symmetric else X2
+    keyed = _keyed(symmetric, offsets)
+    ids = _row_ids(X1.shape[0], X2v.shape[0], keyed, X1.dtype, X1.device)
+    return gram_ids_plain(ck, params, X1, X2v, *ids, diag if keyed[0] else 0.0)
 
 
 def _leaf_dcross(kind, x1, x2, p, e, b):
@@ -114,14 +153,17 @@ def _leaf_dcross(kind, x1, x2, p, e, b):
 
 
 def gram_bwd_plain(ck: CompiledKernel, params: torch.Tensor, X1: torch.Tensor,
-                   X2: Optional[torch.Tensor], gK: torch.Tensor) -> torch.Tensor:
+                   X2: Optional[torch.Tensor], gK: torch.Tensor,
+                   offsets: Offsets = None) -> torch.Tensor:
     """dparams[c, s] = sum_ij gK[c,i,j] dK[c,i,j]/dparams[c,s], (C, n_params)."""
     symmetric = X2 is None
     X2v = X1 if symmetric else X2
+    ids = _row_ids(X1.shape[0], X2v.shape[0], _keyed(symmetric, offsets), X1.dtype,
+                   X1.device)
     cols = [torch.zeros(params.shape[0], dtype=params.dtype, device=params.device)
             for _ in range(params.shape[1])]
     for term in ck.terms:
-        ins = [_leaf_inputs(ck, li, params, X1, X2v, symmetric) for li in term]
+        ins = [_leaf_inputs(ck, li, params, X1, X2v, ids) for li in term]
         vals = [_leaf_cross(ck.kinds[li], *a) for li, a in zip(term, ins)]
         for k, li in enumerate(term):
             w = gK
@@ -207,34 +249,39 @@ def _gram_args(ck, params, X1, X2v, what, *more):
 
 
 def gram_cuda(ck: CompiledKernel, params: torch.Tensor, X1: torch.Tensor,
-              X2: Optional[torch.Tensor] = None, diag: float = 0.0) -> torch.Tensor:
-    """K2: params (C, n_params) -> (C, n1, n2) on the card."""
+              X2: Optional[torch.Tensor] = None, diag: float = 0.0,
+              offsets: Offsets = None) -> torch.Tensor:
+    """K2: params (C, n_params) -> (C, n1, n2) on the card; ``offsets`` as in
+    ``gram_plain``."""
     symmetric = X2 is None
     X2v = X1 if symmetric else X2
+    keyed = _keyed(symmetric, offsets)
     e = _gram_args(ck, params, X1, X2v, "gram (K2)")
     C, n1, n2 = params.shape[0], X1.shape[0], X2v.shape[0]
     out = torch.empty((C, n1, n2), dtype=params.dtype, device=params.device)
     err = e.fwd(*e.head, X1.data_ptr(), X2v.data_ptr(), n1, n2, e.d, params.data_ptr(), C,
-                e.n_params, float(diag), int(symmetric), out.data_ptr(), params.device.index,
-                _build.stream_of(params))
+                e.n_params, float(diag), int(symmetric), *keyed, out.data_ptr(),
+                params.device.index, _build.stream_of(params))
     _build.check(err, "gram (K2)")
     _build.counts["K2"] += 1
     return out
 
 
 def gram_bwd_cuda(ck: CompiledKernel, params: torch.Tensor, X1: torch.Tensor,
-                  X2: Optional[torch.Tensor], gK: torch.Tensor) -> torch.Tensor:
+                  X2: Optional[torch.Tensor], gK: torch.Tensor,
+                  offsets: Offsets = None) -> torch.Tensor:
     """K2b: the (C, n_params) gradient of <gK, K(params)> on the card, one
-    launch; gK need not be symmetric."""
+    launch; gK need not be symmetric; ``offsets`` as in ``gram_plain``."""
     symmetric = X2 is None
     X2v = X1 if symmetric else X2
+    keyed = _keyed(symmetric, offsets)
     e = _gram_args(ck, params, X1, X2v, "gram backward (K2b)", gK)
     C, n1, n2 = params.shape[0], X1.shape[0], X2v.shape[0]
     if gK.shape != (C, n1, n2):
         raise ValueError(f"gram backward (K2b): gK of shape {tuple(gK.shape)}")
     dparams = torch.empty_like(params)
     err = e.bwd(*e.head, X1.data_ptr(), X2v.data_ptr(), n1, n2, e.d, params.data_ptr(), C,
-                e.n_params, int(symmetric), gK.data_ptr(), dparams.data_ptr(),
+                e.n_params, int(symmetric), *keyed, gK.data_ptr(), dparams.data_ptr(),
                 params.device.index, _build.stream_of(params))
     _build.check(err, "gram backward (K2b)")
     _build.counts["K2b"] += 1
@@ -250,17 +297,17 @@ def gram_bwd_cluster(C: int, dtype: torch.dtype, device: int = 0) -> int:
     return got
 
 
-def gram(ck, params, X1, X2=None, diag=0.0):
+def gram(ck, params, X1, X2=None, diag=0.0, offsets: Offsets = None):
     """Forward gram by device: K2 on CUDA, the plain version on the CPU."""
     if params.is_cuda:
-        return gram_cuda(ck, params, X1, X2, diag)
-    return gram_plain(ck, params, X1, X2, diag)
+        return gram_cuda(ck, params, X1, X2, diag, offsets)
+    return gram_plain(ck, params, X1, X2, diag, offsets)
 
 
-def gram_bwd(ck, params, X1, X2, gK):
+def gram_bwd(ck, params, X1, X2, gK, offsets: Offsets = None):
     if params.is_cuda:
-        return gram_bwd_cuda(ck, params, X1, X2, gK)
-    return gram_bwd_plain(ck, params, X1, X2, gK)
+        return gram_bwd_cuda(ck, params, X1, X2, gK, offsets)
+    return gram_bwd_plain(ck, params, X1, X2, gK, offsets)
 
 
 class GramBound(torch.autograd.Function):

@@ -1,7 +1,9 @@
 """The port's CLI on the CPU: the chain-table schema against gaplac_tpu's
 writer, checkpoints in gaplac_tpu's format, the entry point end to end, the
 refusal to start without a card unless given --platform cpu, and an import
-of the whole port that pulls in neither JAX nor gaplac_tpu."""
+of the whole port that pulls in neither JAX nor gaplac_tpu.  --profile and
+--check-numerics: tests/test_torch_profiling.py and
+tests/test_torch_check_numerics.py."""
 
 import argparse
 import ast
@@ -116,19 +118,6 @@ def test_jax_checkpoint_resumes_and_port_checkpoint_loads_in_jax(tmp_path, sampl
     assert back["positions"].shape == (C, dim)
     assert np.isfinite(np.asarray(back["inv_mass"])).all()
     assert ("traj_length" in back) == (sampler == "chees")
-
-
-def test_unported_paths_exit_with_error(tmp_path, capsys):
-    """What stays unported: --profile/--profile-dir and --check-numerics."""
-    data = tmp_path / "data.tsv"
-    _write_data(data)
-    assert main(["--platform", "cpu", "mcmc", "y ~| SqExp(:x)", "--data", str(data),
-                 "--infer", "x", "--check-numerics"]) == 2
-    for flags in (["--profile"], ["--profile-dir", str(tmp_path / "prof")]):
-        assert main(["--platform", "cpu", *flags, "sample", "y ~| SqExp(:x)", "--at",
-                     "x=0:1:2"]) == 2
-    errors = [s for s in capsys.readouterr().err.splitlines() if s.startswith("error:")]
-    assert len(errors) == 3 and all("not yet ported" in s for s in errors), errors
 
 
 def test_no_card_needs_platform_cpu(tmp_path, capsys, monkeypatch):

@@ -269,6 +269,92 @@ def test_k2b_cluster_size(dev):
         assert gram_bwd_cluster(10 ** 4, dtype) == 8
 
 
+#: K2/K2b at global row offsets (r1, r2), n1 x n2, against a matrix of 300
+#: rows: panels whose diagonal r1 + i == r2 + j crosses them (the fused
+#: factorization's (j0, j0), ragged too) and panels wholly below it
+OFFSET_PANELS = [(0, 0, 300, 128), (128, 128, 172, 128), (256, 256, 44, 44), (40, 13, 97, 61),
+                 (200, 0, 100, 128), (128, 0, 172, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("formula", [COMPOSITE, "y ~| Noise"])
+@pytest.mark.parametrize("r1, r2, n1, n2", OFFSET_PANELS)
+def test_k2_and_k2b_at_row_offsets_match_plain(dev, r1, r2, n1, n2, formula, dtype):
+    ck = compile_formula(parse_formula(formula).formula)
+    X, _, p, _ = _gram_inputs(ck, 2, 300, None, dev, r1 + n2)
+    X = X[:, :len(ck.varnames)]  # "y ~| Noise" reads no column
+    X1, X2 = X[r1:r1 + n1].contiguous(), X[r2:r2 + n2].contiguous()
+    G = torch.as_tensor(np.random.default_rng(r2).normal(size=(2, n1, n2)), device=dev)
+    c = lambda t: t.to(dtype)
+    before = dict(_build.counts)
+    K = gram_cuda(ck, c(p), c(X1), c(X2), 0.1, offsets=(r1, r2))
+    dp = gram_bwd_cuda(ck, c(p), c(X1), c(X2), c(G), offsets=(r1, r2))
+    assert (_build.counts["K2"] - before["K2"], _build.counts["K2b"] - before["K2b"]) == (1, 1)
+    if formula == COMPOSITE:
+        _check_kernel(K, lambda *a: gram_plain(ck, *a, 0.1, offsets=(r1, r2)), (p, X1, X2),
+                      dtype)
+        _check_kernel(dp, lambda *a: gram_bwd_plain(ck, *a, offsets=(r1, r2)),
+                      (p, X1, X2, G), dtype)
+        return
+    # bare Noise: p + 0.1 exactly where the global ids meet, else 0; its
+    # gradient the sum of gK there (none on a panel wholly below the diagonal)
+    meet = (torch.arange(r1, r1 + n1, device=dev)[:, None]
+            == torch.arange(r2, r2 + n2, device=dev)[None])
+    assert torch.equal(K, torch.where(meet, c(p)[:, :1, None] + 0.1, 0.0).to(dtype))
+    want = (c(G) * meet).sum(dim=(1, 2))[:, None]
+    if meet.any():
+        assert _rel(dp.double(), want.double()) < (F64_RTOL if dtype == torch.float64 else 1e-5)
+    else:
+        assert torch.equal(dp, torch.zeros_like(dp))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("formula", [COMPOSITE, EXTENDED])
+def test_k2_gram_is_the_cross_gram_at_offsets_zero_bit_for_bit(dev, formula, dtype):
+    """The symmetric gram is the case r1 == r2 with X1 = X2; a cross gram
+    without offsets keys bare leaves on nothing, as at offsets whose ranges
+    never meet, and its bare Noise adds exact zeros."""
+    ck = compile_formula(parse_formula(formula).formula)
+    X1, X2, p, G = _gram_inputs(ck, 3, 130, 70, dev, 5)
+    p, X1, X2, G = p.to(dtype), X1.to(dtype), X2.to(dtype), G.to(dtype)
+    assert torch.equal(gram_cuda(ck, p, X1, None, 0.1),
+                       gram_cuda(ck, p, X1, X1, 0.1, offsets=(0, 0)))
+    cross = gram_cuda(ck, p, X1, X2, 0.1)
+    assert torch.equal(cross, gram_cuda(ck, p, X1, X2, 0.1, offsets=(0, 130)))
+    assert torch.equal(gram_bwd_cuda(ck, p, X1, X2, G),
+                       gram_bwd_cuda(ck, p, X1, X2, G, offsets=(500, 0)))
+    if formula == COMPOSITE:  # the same formula without its bare Noise
+        sub = compile_formula(parse_formula(
+            "y ~| SqExp(:t) * Cat(:g) + Linear(:x) + OU(:t2)").formula)
+        assert torch.equal(cross, gram_cuda(sub, p[:, :4].contiguous(), X1, X2, 0.1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_factor_matches_two_step(dev, dtype):
+    """The fused factorization at n = 4096 (two panels of 2048 from K2 at row
+    offsets, 16 K3 tiles each) against blocked_cholesky of K2's gram, by the
+    float32 rule against the float64 two-step."""
+    from gaplac_tpu_torch.ops.fused import fused_gram_cholesky
+
+    ck = compile_formula(parse_formula("y ~| SqExp(:t) * Cat(:g) + Linear(:x) + Noise").formula)
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(4096, 3))
+    X[:, 1] = np.floor(np.abs(X[:, 1]) * 2)
+    X = torch.as_tensor(X, device=dev)
+    p = ck.default_params(torch.float64, dev)
+    two_step = lambda p_, X_: blocked_cholesky(gram_cuda(ck, p_[None], X_, None, 1.1)[0])
+    ref = two_step(p, X)
+    before = dict(_build.counts)
+    L = fused_gram_cholesky(ck, 1.1, 2048, p.to(dtype), X.to(dtype))
+    assert (_build.counts["K2"] - before["K2"], _build.counts["K3"] - before["K3"]) == (2, 32)
+    if dtype == torch.float64:
+        assert _rel(L, ref) < F64_RTOL
+    else:
+        tol = max(F32_FACTOR * _rel(two_step(p.float(), X.float()).double(), ref), F32_FLOOR)
+        assert _rel(L.double(), ref) <= tol
+    assert float(L.triu(1).abs().max()) == 0.0
+
+
 @pytest.mark.parametrize("n", [1, 37, 127, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k3_matches_plain(dev, n, dtype):
