@@ -11,7 +11,7 @@ views), checks that a symmetric K2 output equals its transpose and that K2b
 repeats bit for bit and is one CUDA kernel a call, times each (CUDA events,
 the profiler's device time and, for K2 and K2b, the wrapper's host time)
 beside the one PyTorch call that computes the same function where there is
-one, then drives six paths through
+one, then drives seven paths through
 the CLI entry point (``gaplac_tpu_torch.cli.main.main``) on the card, the
 kernels' launch counts set to 0 just before each and read just after:
 
@@ -79,7 +79,20 @@ kernels' launch counts set to 0 just before each and read just after:
    n = 32768, at most 1.25 times the factor's bytes; K2 at row offsets
    against its plain version on the panels; the native table IO
    (``data/fastio.py``) on path 5's 2^20-row table and a chain table,
-   against pandas and the plain writer, byte for byte.
+   against pandas and the plain writer, byte for byte;
+7. the parallel slice (``parallel/``) at world size 1 under NCCL on cuda:0:
+   ``mcmc`` NUTS ``--chains 8`` at n = 500 without and with the ``GAPLAC_*``
+   variables (identical tables; the log names NCCL, world size 1 and
+   cuda:0); ``sharded_gram``, ``distributed_cholesky``,
+   ``distributed_solve_lower`` and their log density at n = 16384, float32,
+   each against its counterpart (the symmetric K2 gram, ``ops.linalg.
+   cholesky``'s blocked route through K3, ``solve_triangular``,
+   ``ops/mvn.py``) by the float32 rule against float64 on the card, timed
+   beside it with NCCL's part of the device time; ``sharded_lowrank_logpdf``
+   at n = 65536, m = 512 (value and gradient against float64 and against
+   ``lowrank_logpdf``; one K1 launch an evaluation; wall, device time, peak
+   memory); ``run_chees`` with the one-rank "chains" mesh on path 1's
+   whitened model, equal bit for bit to the run without a mesh.
 
 Every phase raises on failure; the script exits non-zero on any failure and
 when no CUDA device is available.  Its last line is one JSON object
@@ -297,7 +310,7 @@ def phase_k1(dev):
     from gaplac_tpu_torch.ops.cholesky import (CholeskyBatched, chol_batched_cuda,
                                                chol_batched_plain, k1_clusters_that_fit)
 
-    fit = {cl: k1_clusters_that_fit(cl, torch.float32) for cl in K1_CLUSTERS}
+    fit = {cl: k1_clusters_that_fit(cl, torch.float32, dev) for cl in K1_CLUSTERS}
     log("[2] K1 batched Cholesky, one cluster a matrix, against torch.linalg.cholesky_ex; "
         "clusters the card holds at once, float32: "
         + ", ".join(f"{v} of {cl} blocks" for cl, v in fit.items()))
@@ -435,7 +448,7 @@ def phase_k2(dev):
         spread = max(float((gram_bwd_cuda(ck, p, X, None, G) - first).abs().max())
                      for _ in range(DETERMINISM_LAUNCHES - 1))
         log(f"  K2b, {DETERMINISM_LAUNCHES} launches at ({C},{N_OBS},{N_OBS}) float32, "
-            f"clusters of {gram_bwd_cluster(C, torch.float32)}: largest difference from "
+            f"clusters of {gram_bwd_cluster(C, torch.float32, p.device)}: largest difference from "
             f"the first {spread:.3e} (must be 0)")
         if spread != 0.0:
             raise AssertionError(f"K2b is not bitwise repeatable at C = {C}")
@@ -614,7 +627,8 @@ def phase_timings(dev):
         if len(names) != 1 or next(iter(names.values())) != 1:
             raise AssertionError(f"{k}: one CUDA kernel a call expected, got {names}")
         times[k]["kernels_per_call"] = names
-        times[k]["cluster"] = gram_bwd_cluster(1 if "C=1" in k else CHAINS, torch.float32)
+        times[k]["cluster"] = gram_bwd_cluster(1 if "C=1" in k else CHAINS, torch.float32,
+                                               dev)
     return times
 
 
@@ -758,20 +772,25 @@ def read_table(path, columns, rows):
     return df
 
 
-def phase_mcmc_path(dev):
-    """Path 1: mcmc at n = 500, NUTS marginal and ChEES whitened (twice)."""
+def write_path1_data(data: Path) -> Path:
+    """Path 1's data: N_OBS points of a SqExp (l = 1.5) draw plus 0.1 noise."""
     import pandas as pd
 
-    from gaplac_tpu_torch.ops import _build
-
-    log("[6] path 1: mcmc through gaplac_tpu_torch.cli.main on the card, n = 500")
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    data.parent.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(0)
     x = rng.uniform(-5, 5, N_OBS)
     K = sqexp_gram(x, np.array([1.5]), 0.1)[0]
     y = np.linalg.cholesky(K) @ rng.normal(size=N_OBS)
-    data = OUT_DIR / "data.tsv"
     pd.DataFrame({"x": x, "y": y}).to_csv(data, sep="\t", index=False)
+    return data
+
+
+def phase_mcmc_path(dev):
+    """Path 1: mcmc at n = 500, NUTS marginal and ChEES whitened (twice)."""
+    from gaplac_tpu_torch.ops import _build
+
+    log("[6] path 1: mcmc through gaplac_tpu_torch.cli.main on the card, n = 500")
+    data = write_path1_data(OUT_DIR / "data.tsv")
     capture = _Capture()
     logging.getLogger().addHandler(capture)
     head = ["iteration", "chain", "ℓ"] + [f"fx[{i + 1}]" for i in range(N_OBS)] + ["lp"]
@@ -2922,6 +2941,316 @@ def phase_fastio() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# path 7: the parallel slice at world size 1 under NCCL
+# ---------------------------------------------------------------------------
+
+GAPLAC_VARS = ("GAPLAC_COORDINATOR", "GAPLAC_NUM_PROCESSES", "GAPLAC_PROCESS_ID")
+#: path 7's NUTS run: --chains 8, shortened
+PAR_NUTS = ["--chains", str(CHAINS), "--samples", "20", "--warmup", "20"]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_parallel_mcmc(data: Path) -> tuple:
+    """Path 7a: mcmc NUTS --chains 8 at n = 500, once without the GAPLAC_*
+    variables and once with them at world size 1 (NCCL on cuda:0, the chains
+    sharded over the one rank and gathered back): identical tables."""
+    import os
+
+    from gaplac_tpu_torch.ops import _build
+    from gaplac_tpu_torch.parallel import multihost
+
+    log("[28] path 7: mcmc NUTS --chains 8 without and with GAPLAC_* (world size 1, NCCL)")
+    capture = _Capture()
+    logging.getLogger().addHandler(capture)
+    launches, walls, tables, logs = {}, {}, {}, {}
+    try:
+        for name, env in (("single", {}),
+                          ("world 1", {"GAPLAC_COORDINATOR": f"127.0.0.1:{free_port()}",
+                                       "GAPLAC_NUM_PROCESSES": "1", "GAPLAC_PROCESS_ID": "0"})):
+            out = OUT_DIR / f"nuts_chains8_{name.replace(' ', '_')}.tsv"
+            os.environ.update(env)
+            _build.reset_counts()
+            t0 = time.perf_counter()
+            try:
+                run_cli(["-v", "--platform", "cuda", "mcmc", "y ~| SqExp(:x)", "--data",
+                         str(data), "--infer", "x", "--output", str(out), "--seed", "1",
+                         *PAR_NUTS], capture)
+                torch.cuda.synchronize()
+            finally:
+                multihost.shutdown()
+                for k in env:
+                    os.environ.pop(k)
+            walls[name] = time.perf_counter() - t0
+            launches[name] = dict(_build.counts)
+            logs[name] = list(capture.lines)
+            tables[name] = out.read_bytes()
+    finally:
+        logging.getLogger().removeHandler(capture)
+    init = [s for s in logs["world 1"] if "torch.distributed initialized" in s]
+    log(f"  walls (s) {walls}; launches {launches}; {init}")
+    if tables["single"] != tables["world 1"]:
+        raise AssertionError("NUTS wrote different tables with and without GAPLAC_*")
+    if not any("sharded 8 chains over 1 devices" in s for s in logs["world 1"]):
+        raise AssertionError("the world-size-1 run did not shard its chains")
+    if any("torch.distributed" in s for s in logs["single"]):
+        raise AssertionError("the run without GAPLAC_* started a process group")
+    if init != ["torch.distributed initialized (nccl): rank 0, world size 1, device cuda:0"]:
+        raise AssertionError(f"the world-size-1 run logged {init}")
+    read_table(OUT_DIR / "nuts_chains8_world_1.tsv",
+               ["iteration", "chain", "ℓ"] + [f"fx[{i + 1}]" for i in range(N_OBS)]
+               + ["lp", "acceptance_rate", "tree_depth", "numerical_error"], 20 * CHAINS)
+    for name in launches:
+        require_launches(f"path 7 mcmc {name}", launches[name], ("K1", "K2", "K2b"))
+    log("  the two chain tables are identical")
+    return launches["world 1"], {"walls_s": walls, "launches_single": launches["single"]}
+
+
+def nccl_split(fn, calls: int = 3) -> dict:
+    """fn's device time a call (the profiler's fullest of two windows), NCCL's
+    kernels' part of it and their count.  A collective of one rank launches
+    no NCCL kernel: in place it does nothing, and an all-gather copies."""
+    kernels = [(e.key, e.self_device_time_total / 1e3 / calls, e.count / calls)
+               for e in profiled(fn, calls, windows=2)
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(ms for _, ms, _ in kernels)
+    nccl = [(ms, c) for name, ms, c in kernels if "nccl" in name.lower()]
+    return {"device_ms": total, "nccl_ms": sum(ms for ms, _ in nccl),
+            "nccl_kernels": sum(c for _, c in nccl),
+            "nccl_share": sum(ms for ms, _ in nccl) / total if total else None}
+
+
+def wall_ms(fn, reps: int = 3) -> float:
+    """Median host wall of ``reps`` calls, each ended by a synchronize, after
+    a warmup."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(walls))
+
+
+def phase_parallel_dense(dev, mesh) -> tuple:
+    """Path 7b: sharded_gram, distributed_cholesky, distributed_solve_lower and
+    the log density they make, at benchmarks/bench_ops.py's width (n = 16384,
+    float32) on a "data" mesh (world size 1 here), each against its
+    counterpart (the symmetric K2 gram, ops.linalg.cholesky,
+    solve_triangular, ops/mvn.py) by the float32 rule against the
+    counterpart in float64 on the card, the plain float32 runs being the
+    counterpart's and the distributed function's with every kernel's plain
+    version, and timed beside it: wall, device time and NCCL's part."""
+    from gaplac_tpu_torch.ops import _build, linalg, mvn
+    from gaplac_tpu_torch.ops.gram import gram
+    from gaplac_tpu_torch.parallel import distributed as D
+    from gaplac_tpu_torch.parallel.mesh import gather_chain_axis
+
+    n = N_FUSED
+    log(f"[29] path 7: the distributed dense functions, {FUSED_FORMULA}, n = {n}, "
+        f"world size {mesh.size}")
+    nb = n // mesh.size
+
+    def distributed(ck, p, X, y):
+        K = D.sharded_gram(ck, p, X, mesh, jitter=FUSED_DIAG)
+        L = D.distributed_cholesky(K, mesh)
+        x = D.distributed_solve_lower(L, y, mesh)
+        logdet = 2.0 * torch.log(torch.diagonal(L, offset=mesh.rank * nb)).sum()
+        torch.distributed.all_reduce(logdet, group=mesh.group)
+        return K, L, x, -0.5 * (x @ x + logdet + n * math.log(2 * math.pi))
+
+    def counterpart(ck, p, X, y):
+        K = gram(ck, p[None], X, None, FUSED_DIAG)[0]
+        L = linalg.cholesky(K)
+        return K, L, linalg.solve_triangular(L, y, lower=True), mvn.mvn_logpdf_chol(L, y)
+
+    names = ("sharded_gram", "distributed_cholesky", "distributed_solve_lower",
+             "log density")
+    def whole(K, L, x, lp):  # the block rows of K and L in rank order
+        return gather_chain_axis(K, mesh), gather_chain_axis(L, mesh), x, lp
+
+    ref64 = counterpart(*fused_inputs(n, dev, torch.float64))
+    ins = fused_inputs(n, dev, torch.float32)
+    plain32 = counterpart(*ins)
+    with plain_kernels():
+        dist_plain32 = whole(*distributed(*ins))
+    _build.reset_counts()
+    got = distributed(*ins)
+    torch.cuda.synchronize()
+    launches = dict(_build.counts)
+    K, L = got[0], got[1]
+    got = whole(*got)
+    K_all, L_all = got[0], got[1]
+    out = {"errors": {}, "launches": launches}
+    for name, g, p32, d32, r64 in zip(names, got, plain32, dist_plain32, ref64):
+        out["errors"][name] = check_accuracy(f"{name} against its counterpart", g, (p32, d32),
+                                             r64)
+    # the diagonal blocks' factorizations: the blocked route from n = 2048, else K1
+    require_launches("path 7 dense", launches,
+                     ("K2", "K3" if nb >= linalg.BLOCKED_MIN_N else "K1"))
+    del ref64, plain32, dist_plain32, got
+    ck, p, X, y = ins
+    pairs = {
+        "sharded_gram": (lambda: D.sharded_gram(ck, p, X, mesh, jitter=FUSED_DIAG),
+                         lambda: gram(ck, p[None], X, None, FUSED_DIAG)),
+        "distributed_cholesky": (lambda: D.distributed_cholesky(K, mesh),
+                                 lambda: linalg.cholesky(K_all)),
+        "distributed_solve_lower": (lambda: D.distributed_solve_lower(L, y, mesh),
+                                    lambda: linalg.solve_triangular(L_all, y, lower=True)),
+        "log density": (lambda: distributed(*ins), lambda: counterpart(*ins)),
+    }
+    out["times"] = {}
+    for name, (fn, ref) in pairs.items():
+        row = {"wall_ms": wall_ms(fn), "counterpart_wall_ms": wall_ms(ref), **nccl_split(fn),
+               "counterpart_device_ms": nccl_split(ref)["device_ms"]}
+        out["times"][name] = row
+        log(f"  {name}: wall {row['wall_ms']:.3f} ms (counterpart "
+            f"{row['counterpart_wall_ms']:.3f}), device {row['device_ms']:.3f} ms (counterpart "
+            f"{row['counterpart_device_ms']:.3f}), NCCL {row['nccl_ms']:.4f} ms in "
+            f"{row['nccl_kernels']:g} kernels, share {row['nccl_share']:.4f}")
+    return launches, out
+
+
+def phase_parallel_lowrank(dev, mesh, x, y) -> tuple:
+    """Path 7c: sharded_lowrank_logpdf at path 4's width (n = 65536, m = 512)
+    on a "data" mesh (world size 1 here): value and gradient by the float32
+    rule against float64 on the card, the same against ops/lowrank.py's
+    lowrank_logpdf on the same features in float64 (the plain float32 runs:
+    lowrank_logpdf's and the sharded one's with K1's plain version), one K1
+    launch an evaluation, wall, device time and peak memory."""
+    from gaplac_tpu_torch import parse_formula
+    from gaplac_tpu_torch.kernels.covariance import compile_formula
+    from gaplac_tpu_torch.kernels.features import build_feature_map
+    from gaplac_tpu_torch.ops import _build, lowrank
+    from gaplac_tpu_torch.parallel import distributed as D
+
+    log(f"[30] path 7: sharded_lowrank_logpdf, n = {N_RFF}, m = {M_RFF}, "
+        f"world size {mesh.size}")
+    ck = compile_formula(parse_formula("y ~| SqExp(:x)").formula)
+    extra = 1.1  # the latent jitter and the observation variance
+
+    def setup(dtype):
+        X = torch.tensor(x[:, None], dtype=dtype, device=dev)
+        Y = torch.tensor(y, dtype=dtype, device=dev)
+        fm = build_feature_map(ck, [X], num_features=M_RFF, seed=0)
+        p = ck.set_params(ck.default_params(dtype, dev), [0], 1.5)
+        return fm, X, Y, p
+
+    def value_grad(fn, dtype):
+        fm, X, Y, p = setup(dtype)
+        p = p.clone().requires_grad_(True)
+        lp = fn(fm, p, X, Y)
+        (g,) = torch.autograd.grad(lp, p)
+        return {"value": lp.detach(), "gradient": g}
+
+    sharded = lambda fm, p, X, Y: D.sharded_lowrank_logpdf(fm, p, X, extra, Y, mesh)
+    single = lambda fm, p, X, Y: lowrank.lowrank_logpdf(fm.phi(p, X),
+                                                        extra + fm.noise_diag(p, X), Y)
+    card = (("card", "cuda", torch.float32), ("card64", "cuda", torch.float64),
+            ("card_plain", "cuda", torch.float32))
+    out = {"float32_rule": float32_rule("sharded_lowrank_logpdf",
+                                        lambda d, dt: value_grad(sharded, dt), card)}
+    got = value_grad(sharded, torch.float32)
+    ref = value_grad(single, torch.float64)
+    plain = value_grad(single, torch.float32)
+    with plain_kernels():
+        sharded_plain = value_grad(sharded, torch.float32)
+    out["against_lowrank_logpdf"] = {
+        k: check_accuracy(f"sharded_lowrank_logpdf {k} against lowrank_logpdf", got[k],
+                          (plain[k], sharded_plain[k]), ref[k]) for k in got}
+    fm, X, Y, p = setup(torch.float32)
+    p.requires_grad_(True)
+
+    def vg():
+        lp = sharded(fm, p, X, Y)
+        return torch.autograd.grad(lp, p)
+
+    vg()
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    _, peak = peak_above(vg)
+    launches = dict(_build.counts)
+    log(f"  one value+grad: launches {launches}, peak {peak / 2**30:.3f} GiB above the inputs")
+    if launches != {"K1": 1, "K2": 0, "K2b": 0, "K3": 0}:
+        raise AssertionError(f"one K1 launch an evaluation expected, got {launches}")
+    out.update(wall_ms=wall_ms(vg, 5), peak_bytes=peak, **nccl_split(vg))
+    out["single_wall_ms"] = wall_ms(lambda: torch.autograd.grad(single(fm, p, X, Y), p), 5)
+    log(f"  value+grad wall {out['wall_ms']:.3f} ms (lowrank_logpdf "
+        f"{out['single_wall_ms']:.3f}),"
+        f" device {out['device_ms']:.3f} ms, NCCL {out['nccl_ms']:.4f} ms")
+    return launches, out
+
+
+def phase_parallel_chees(dev, mesh, data: Path) -> tuple:
+    """Path 7d: run_chees with the world-size-1 "chains" mesh on path 1's
+    whitened model (dim 501), 8 chains, shortened: bit for bit run_chees
+    without a mesh."""
+    import pandas as pd
+
+    from gaplac_tpu_torch import parse_formula
+    from gaplac_tpu_torch.inference.chees import run_chees
+    from gaplac_tpu_torch.inference.model import build_model
+    from gaplac_tpu_torch.kernels.covariance import compile_formula
+    from gaplac_tpu_torch.ops import _build
+    from gaplac_tpu_torch.parallel.mesh import shard_chain_axis
+
+    log(f"[31] path 7: run_chees with and without the world-size-1 mesh, whitened n = {N_OBS}")
+    df = pd.read_csv(data, sep="\t")
+    spec = parse_formula("y ~| SqExp(:x)")
+    model = build_model(compile_formula(spec.formula), ["x"],
+                        torch.tensor(df[["x"]].to_numpy(), dtype=torch.float32, device=dev),
+                        torch.tensor(df["y"].to_numpy(), dtype=torch.float32, device=dev),
+                        spec.likelihood, marginalize=False)
+    q0 = model.initial_position(torch.Generator(device=dev).manual_seed(0), CHAINS)
+    runs, launches = {}, {}
+    for name, m in (("no mesh", None), ("world 1", mesh)):
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        runs[name] = run_chees(torch.Generator(device=dev).manual_seed(1), model.logdensity,
+                               shard_chain_axis(q0, mesh=m), 5, num_warmup=10, mesh=m)
+        torch.cuda.synchronize()
+        launches[name] = (dict(_build.counts), time.perf_counter() - t0)
+    a, b = runs["no mesh"], runs["world 1"]
+    same = {k: (torch.equal(u, v) if torch.is_tensor(u) else u == v)
+            for k, u, v in zip(a._fields, a, b)}
+    log(f"  launches and walls (s) {launches}; equal bit for bit: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"run_chees with the world-size-1 mesh differs: {same}")
+    require_launches("path 7 chees", launches["world 1"][0], ("K1", "K2", "K2b"))
+    return launches["world 1"][0], {"walls_s": {k: v[1] for k, v in launches.items()},
+                                    "step_size": b.step_size, "traj_length": b.traj_length}
+
+
+def phase_parallel(dev, data: Path, x4, y4) -> tuple:
+    """Path 7: the parallel slice at world size 1 under NCCL on cuda:0."""
+    from gaplac_tpu_torch.parallel import multihost
+    from gaplac_tpu_torch.parallel.distributed import data_mesh
+    from gaplac_tpu_torch.parallel.mesh import chain_mesh
+
+    t0 = time.perf_counter()
+    launches, out = {}, {}
+    launches["mcmc"], out["mcmc"] = phase_parallel_mcmc(data)
+    multihost.maybe_initialize(f"127.0.0.1:{free_port()}", 1, 0, dev)
+    try:
+        launches["dense"], out["dense"] = phase_parallel_dense(dev, data_mesh())
+        launches["lowrank"], out["lowrank"] = phase_parallel_lowrank(dev, data_mesh(), x4, y4)
+        launches["chees"], out["chees"] = phase_parallel_chees(dev, chain_mesh(), data)
+    finally:
+        multihost.shutdown()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  path 7 took {out['wall_s']:.1f} s")
+    return launches, out
+
+
 def gram_times(dev) -> dict:
     """Only K2 and K2b at phase 5's shapes (``--gram-times``): the wrapper's
     host time, CUDA-event time, the profiler's device time and the bound.
@@ -3078,6 +3407,9 @@ def main() -> int:
     path5_launches.update({f"longitudinal {k}": v for k, v in lo_launches.items()})
     auto_launches, path5["auto"] = phase_auto(dev)
     path5_launches.update({f"auto {k}": v for k, v in auto_launches.items()})
+    # path 7, each part with the launch counts set to 0 just before it; before
+    # path 6, whose --profile-dir traces leave the profiler dropping records
+    path7_launches, path7 = phase_parallel(dev, OUT_DIR / "data.tsv", x4, y4)
     # path 6, each part with the launch counts set to 0 just before it
     path6_launches, path6 = {}, {}
     path6_launches["observability"], path6["observability"] = phase_observability(
@@ -3100,7 +3432,8 @@ def main() -> int:
                    **{f"path3 {k}": v[key] for k, v in path3_launches.items()},
                    **{f"path4 {k}": v[key] for k, v in path4_launches.items()},
                    **{f"path5 {k}": v[key] for k, v in path5_launches.items()},
-                   **{f"path6 {k}": v[key] for k, v in path6_launches.items()}}
+                   **{f"path6 {k}": v[key] for k, v in path6_launches.items()},
+                   **{f"path7 {k}": v[key] for k, v in path7_launches.items()}}
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                "launches": sum(by_path.values()), "launches_by_path": by_path,
                "max_abs_err": err, **times[key]}
@@ -3147,6 +3480,7 @@ def main() -> int:
     log("path 4: " + json.dumps(path4, default=str))
     log("path 5: " + json.dumps(path5, default=str))
     log("path 6: " + json.dumps(path6, default=str))
+    log("path 7: " + json.dumps(path7, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,10 @@ rff`` path (``kernels/features.py``, ``ops/lowrank.py``) factors its
 capacitance matrices through the same Cholesky kernels.  ``ops/fused.py``
 factors a dense gram left-looking, panel by panel, without materializing
 it (K2 at global row offsets, K3 for the tiles, K2b for the backward).
+``parallel/`` starts a multi-process run from the ``GAPLAC_*`` variables on
+``torch.distributed`` (NCCL on the cards, gloo on the CPU) and shards the
+NUTS chains, the ChEES/HMC adaptation and the dense and low-rank log
+densities' rows over its ranks.
 """
 
 __version__ = "0.1.0"

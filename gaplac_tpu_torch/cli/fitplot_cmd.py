@@ -43,6 +43,7 @@ from gaplac_tpu_torch.kernels.covariance import KIND_NAMES, CompiledKernel, comp
 from gaplac_tpu_torch.kernels.features import FeatureMap, build_feature_map
 from gaplac_tpu_torch.ops import linalg, lowrank
 from gaplac_tpu_torch.ops import markov_ss as mss
+from gaplac_tpu_torch.parallel.multihost import is_primary
 from gaplac_tpu_torch.runtime import Runtime
 
 log = logging.getLogger("gaplac")
@@ -197,6 +198,8 @@ def run(args, rt: Runtime) -> None:
                                              dynamic_slots)
     else:
         panels = component_posteriors(ck, params, X, y, args.jitter + sigma2, terms)
+    if not is_primary():  # rank 0 of a multi-process run draws and writes
+        return
 
     from gaplac_tpu_torch.viz.plots import pyplot
 

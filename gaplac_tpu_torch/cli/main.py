@@ -306,6 +306,11 @@ def main(argv=None) -> int:
             rt = configure(args.platform, args.precision)
         except RuntimeError as e:  # no card and no --platform cpu
             raise ValueError(str(e)) from e
+        # a multi-process run when GAPLAC_COORDINATOR is set: NCCL on the
+        # run's card (bound by configure), gloo on the CPU
+        from gaplac_tpu_torch.parallel.multihost import maybe_initialize
+
+        maybe_initialize(device=rt.device)
         if args.command == "sample":
             from gaplac_tpu_torch.cli.sample_cmd import run
         elif args.command == "select":

@@ -12,10 +12,19 @@ obs sigma 1, one shared scalar for all --infer vars), the same chain-table
 schema, and ``--checkpoint/--resume`` in the same ``.npz`` format, so a
 checkpoint written by ``gaplac_tpu`` resumes here and the other way round.
 Gaussian likelihoods are marginalized unless ``--no-marginalize``.
-NUTS chains run one after another; ChEES and fixed-trajectory HMC
-(``--sampler hmc``, in segments with ``--segments``) move all chains in
-lockstep; ``--sampler advi`` fits a mean-field Gaussian and reports
-pseudodraws.
+NUTS chains run one after another, each on its own generator seeded from
+``--seed`` (one seed a chain, as ``gaplac_tpu`` splits one key a chain), so
+a chain draws the same numbers whichever rank runs it; ChEES and
+fixed-trajectory HMC (``--sampler hmc``, in segments with ``--segments``)
+move all chains in lockstep; ``--sampler advi`` fits a mean-field Gaussian
+and reports pseudodraws.
+
+In a multi-process run (``GAPLAC_*``, ``parallel/multihost.py``) the NUTS
+chains are sharded over the ranks when their count divides the world size
+(``parallel/mesh.py``; else every rank runs every chain), and the results
+are gathered in chain order on every rank, as ``gaplac_tpu`` shards its
+NUTS path; ChEES, HMC and ADVI run whole on every rank.  Only rank 0
+writes the table, the checkpoint and the plot, and prints the summary.
 
 ``--check-numerics`` checks, for NaN, the arrays that ``gaplac_tpu``'s
 ``jax_debug_nans`` checks: the outputs of its jitted sampler run and chain
@@ -55,6 +64,13 @@ from gaplac_tpu_torch.inference.routing import (
     sde_structure_info,
 )
 from gaplac_tpu_torch.kernels.covariance import compile_formula
+from gaplac_tpu_torch.parallel.mesh import (
+    chain_mesh,
+    gather_chain_axis,
+    shard_chain_axis,
+    shards_evenly,
+)
+from gaplac_tpu_torch.parallel.multihost import is_primary
 from gaplac_tpu_torch.runtime import Runtime
 from gaplac_tpu_torch.utils import profiling
 
@@ -165,6 +181,8 @@ def run(args, rt: Runtime) -> None:
 
     n_chains = args.chains
     init_positions = model.initial_position(gen, n_chains)
+    # one generator a chain, for its sampler and its report draws
+    seeds = torch.randint(0, 2**62, (n_chains,), generator=gen, device=device).tolist()
     resume_state = None
     if args.resume:
         if args.resume.endswith((".tsv", ".csv")):
@@ -181,10 +199,16 @@ def run(args, rt: Runtime) -> None:
     def chain_density(q):
         return model.logdensity(q[None])[0]
 
+    # this rank's chains (all of them without a mesh, or when they do not
+    # divide over it), gathered back in chain order after the report
+    mesh = chain_mesh() if torch.distributed.is_initialized() else None
+    ids = shard_chain_axis(torch.arange(n_chains), mesh=mesh).tolist()
+    mesh = mesh if shards_evenly(n_chains, mesh) else None
+    gens = {c: torch.Generator(device=device).manual_seed(seeds[c]) for c in ids}
     t0 = time.time()
     results = []
     with profiling.phase("mcmc.sample+compile"):
-        for c in range(n_chains):
+        for c in ids:
             eps0 = im0 = None
             if resume_state is not None:
                 eps0 = float(resume_state["step_size"])
@@ -192,40 +216,48 @@ def run(args, rt: Runtime) -> None:
                 im0 = torch.as_tensor(im[c] if im.ndim == 2 else im, dtype=dtype,
                                       device=device)
             results.append(run_nuts(
-                gen, chain_density, init_positions[c], num_samples, num_warmup=num_warmup,
-                max_depth=args.max_depth, target_accept=args.target_accept,
+                gens[c], chain_density, init_positions[c], num_samples,
+                num_warmup=num_warmup, max_depth=args.max_depth,
+                target_accept=args.target_accept,
                 # the chains run in turn, so each prints its own progress lines
                 initial_step_size=eps0, initial_inv_mass=im0, progress=args.progress,
             ))
         _sync(device)
     elapsed = time.time() - t0
-    total = n_chains * (num_samples + num_warmup)
+    total = len(ids) * (num_samples + num_warmup)
     log.info("sampling done in %.2fs (%.1f transitions/s; %d divergences)", elapsed,
              total / elapsed, int(sum(r.diverging.sum() for r in results)))
 
+    def gathered(arrays, dtype=dtype):
+        return gather_chain_axis(torch.stack([torch.as_tensor(a, dtype=dtype, device=device)
+                                              for a in arrays]), mesh).cpu()
+
     sl = slice(args.burnin, None, args.thin)
-    positions = torch.stack([r.positions for r in results])[:, sl]
-    accepts = np.stack([r.accept_prob for r in results])[:, sl]
-    depths = np.stack([r.depths for r in results])[:, sl]
-    divs = np.stack([r.diverging for r in results])[:, sl]
+    positions = gathered([r.positions for r in results])
+    # per draw: accept probability, tree depth, divergence (exact in float64)
+    per_draw = gathered([np.stack([r.accept_prob, r.depths, r.diverging], axis=1)
+                         for r in results], torch.float64).numpy()
+    step_sizes = gathered([r.step_size for r in results], torch.float64).numpy()
+    inv_mass = gathered([r.inv_mass for r in results])
     check_numerics(args, [
-        ("sampler's positions", torch.stack([r.positions for r in results])),
-        ("sampler's log densities", torch.stack([r.logps for r in results])),
-        ("sampler's accept probabilities", np.stack([r.accept_prob for r in results])),
-        ("sampler's step sizes", np.asarray([r.step_size for r in results])),
-        ("sampler's inverse mass", torch.stack([r.inv_mass for r in results])),
+        ("sampler's positions", positions),
+        ("sampler's log densities", gathered([r.logps for r in results])),
+        ("sampler's accept probabilities", per_draw[..., 0]),
+        ("sampler's step sizes", step_sizes),
+        ("sampler's inverse mass", inv_mass),
     ])
 
     with profiling.phase("mcmc.report"):
-        thetas, fs, lps = _chain_report(model, gen, positions, want_latents=not args.no_latents)
+        reports = [_report(model, gens[c], r.positions[sl]) for c, r in zip(ids, results)]
+        thetas, fs, lps = (None if k == 1 and args.no_latents
+                           else gathered([rep[k] for rep in reports]).numpy() for k in range(3))
     check_report_numerics(args, thetas, fs, lps)
-    if args.checkpoint:
-        _save_checkpoint(args.checkpoint, positions,
-                         step_size=np.asarray([r.step_size for r in results]),
-                         inv_mass=torch.stack([r.inv_mass for r in results]))
+    if args.checkpoint and is_primary():
+        _save_checkpoint(args.checkpoint, positions[:, sl], step_size=step_sizes,
+                         inv_mass=inv_mass)
         log.info("checkpoint written to %s", args.checkpoint)
-    _emit_chains(args, model, y.shape[0], thetas, fs, lps, accepts=accepts, depths=depths,
-                 divs=divs)
+    _emit_chains(args, model, y.shape[0], thetas, fs, lps, accepts=per_draw[:, sl, 0],
+                 depths=per_draw[:, sl, 1].astype(np.int32), divs=per_draw[:, sl, 2] != 0)
 
 
 def check_report_numerics(args, thetas, fs, lps) -> None:
@@ -233,21 +265,23 @@ def check_report_numerics(args, thetas, fs, lps) -> None:
                           ("report's log densities", lps)])
 
 
-def _chain_report(model, gen, positions, want_latents=True):
-    """(chains, draws, dim) positions -> numpy thetas, latents, lps, in
+def _report(model, gen, flat):
+    """(draws, dim) positions -> thetas, latents, lps on the device, in
     batches of the model's report_batch draws."""
-    C, kept, dim = positions.shape
-    flat = positions.reshape(C * kept, dim)
     B = model.report_batch
-    parts = [model.report(gen, flat[i:i + B]) for i in range(0, C * kept, B)]
+    parts = [model.report(gen, flat[i:i + B]) for i in range(0, flat.shape[0], B)]
+    if not parts:
+        return flat.new_zeros((0, model.n_hyper)), flat.new_zeros((0, 0)), flat.new_zeros((0,))
+    return tuple(torch.cat([p[k] for p in parts]) for k in range(3))
 
-    def cat(k):
-        if not parts:
-            return np.zeros((C, kept) + ((model.n_hyper,) if k == 0 else ()))
-        t = torch.cat([p[k] for p in parts])
-        return t.cpu().numpy().reshape((C, kept) + tuple(t.shape[1:]))
 
-    return cat(0), (cat(1) if want_latents else None), cat(2)
+def _chain_report(model, gen, positions, want_latents=True):
+    """(chains, draws, dim) positions -> numpy thetas, latents, lps, the
+    draws of all chains in one stream from ``gen``."""
+    C, kept, dim = positions.shape
+    out = [t.cpu().numpy().reshape((C, kept) + tuple(t.shape[1:]))
+           for t in _report(model, gen, positions.reshape(C * kept, dim))]
+    return out[0], (out[1] if want_latents else None), out[2]
 
 
 def _emit_chains(args, model, n_obs, thetas, fs, lps, accepts=None, depths=None, divs=None,
@@ -256,8 +290,11 @@ def _emit_chains(args, model, n_obs, thetas, fs, lps, accepts=None, depths=None,
 
     thetas (chains, draws, n_hyper), fs (chains, draws, n), lps (chains,
     draws); NUTS adds per-draw ``depths``/``divs``, ChEES the adapted
-    ``step_size`` and ``traj_length`` as scalar-repeat columns.
+    ``step_size`` and ``traj_length`` as scalar-repeat columns.  Only rank 0
+    of a multi-process run writes and prints.
     """
+    if not is_primary():
+        return
     n_chains, kept = lps.shape
     frames = []
     for c in range(n_chains):
@@ -362,7 +399,7 @@ def _run_lockstep_path(args, model, y, num_samples, num_warmup, gen, rt: Runtime
                          else f"mcmc.{kind}+compile"):
         if kind == "hmc":
             ckpt_cb = None
-            if segments and args.checkpoint:
+            if segments and args.checkpoint and is_primary():
                 def ckpt_cb(state):
                     np.savez(args.checkpoint, **state)
 
@@ -395,7 +432,7 @@ def _run_lockstep_path(args, model, y, num_samples, num_warmup, gen, rt: Runtime
     positions = res.positions[:, sl]
     thetas, fs, lps = _chain_report(model, gen, positions, want_latents=not args.no_latents)
     check_report_numerics(args, thetas, fs, lps)
-    if args.checkpoint:
+    if args.checkpoint and is_primary():
         _save_checkpoint(args.checkpoint, positions, step_size=np.asarray(res.step_size),
                          inv_mass=res.inv_mass, traj_length=traj_length)
         log.info("checkpoint written to %s", args.checkpoint)
@@ -413,7 +450,8 @@ def _run_advi_path(args, model, y, num_samples, gen):
     result = run_advi(gen, model, num_steps=args.vi_steps)
     elbo = float(result.elbo_trace[-1])
     log.info("ADVI: %d steps in %.2fs, final ELBO %.3f", args.vi_steps, time.time() - t0, elbo)
-    print(f"ADVI converged: final ELBO {elbo:.3f}")
+    if is_primary():
+        print(f"ADVI converged: final ELBO {elbo:.3f}")
     draws = sample_posterior(gen, result, args.chains * num_samples)
     draws = draws.reshape(args.chains, num_samples, model.dim)
     check_numerics(args, [("ADVI fit's mean", result.mu), ("ADVI fit's log scale",

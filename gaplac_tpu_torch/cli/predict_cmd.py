@@ -42,6 +42,7 @@ from gaplac_tpu_torch.kernels.covariance import compile_formula
 from gaplac_tpu_torch.kernels.features import build_feature_map
 from gaplac_tpu_torch.ops import lowrank, markov, mvn
 from gaplac_tpu_torch.ops import markov_ss as mss
+from gaplac_tpu_torch.parallel.multihost import is_primary
 from gaplac_tpu_torch.runtime import Runtime
 
 log = logging.getLogger("gaplac")
@@ -202,6 +203,8 @@ def run(args, rt: Runtime) -> None:
     out["ymu"] = ymu
     out["yQ050"] = q05
     out["yQ950"] = q95
+    if not is_primary():  # rank 0 of a multi-process run writes
+        return
     df_output(out, args.output)
 
     if args.plot:

@@ -42,6 +42,7 @@ from gaplac_tpu_torch.kernels.covariance import compile_formula
 from gaplac_tpu_torch.kernels.features import build_feature_map
 from gaplac_tpu_torch.ops import lowrank, mvn
 from gaplac_tpu_torch.ops import markov_ss as mss
+from gaplac_tpu_torch.parallel.multihost import is_primary
 from gaplac_tpu_torch.runtime import Runtime
 
 log = logging.getLogger("gaplac")
@@ -78,6 +79,8 @@ def run(args, rt: Runtime) -> None:
             K = ck.gram(params, X, diag=args.jitter)  # K + jitter I
             y = mvn.sample_mvn_chol(gen, mvn.chol(K))
     df[spec.response] = y.cpu().numpy()
+    if not is_primary():  # rank 0 of a multi-process run writes
+        return
     df_output(df, args.output)
     if args.plot:
         _plot(args, spec, ck, df, rt)

@@ -35,6 +35,7 @@ from gaplac_tpu_torch.inference.routing import choose_approx
 from gaplac_tpu_torch.kernels.features import build_feature_map
 from gaplac_tpu_torch.ops import lowrank, markov, mvn
 from gaplac_tpu_torch.ops import markov_ss as mss
+from gaplac_tpu_torch.parallel.multihost import is_primary
 from gaplac_tpu_torch.runtime import Runtime
 
 log = logging.getLogger("gaplac")
@@ -154,7 +155,8 @@ def run(args, rt: Runtime) -> float:
         f"_Note_ - Positive values indicate more evidence for model 1"
     )
     log.info("\n%s", report)
-    print(report)
+    if is_primary():  # rank 0 of a multi-process run prints
+        print(report)
     return bayes
 
 

@@ -130,6 +130,17 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def device_index(device) -> int:
+    """The CUDA device index of ``device``: an index, or a ``torch.device``
+    with one (a CUDA tensor's ``.device``)."""
+    if isinstance(device, int):
+        return device
+    device = torch.device(device)
+    if device.type != "cuda" or device.index is None:
+        raise ValueError(f"a CUDA device with an index expected, got {device}")
+    return device.index
+
+
 def require_cuda(what: str, *tensors: torch.Tensor, contiguous: bool = True) -> torch.dtype:
     """Check that the kernel's tensors share one CUDA device and one float
     dtype (float32 or float64) and, unless ``contiguous`` is False, are

@@ -77,11 +77,11 @@ def chol_batched_cuda(A: torch.Tensor, cluster: int = K1_CLUSTER) -> torch.Tenso
     return L
 
 
-def k1_clusters_that_fit(cluster: int, dtype: torch.dtype) -> int:
-    """How many of K1's clusters of ``cluster`` blocks the current card holds
-    at once."""
+def k1_clusters_that_fit(cluster: int, dtype: torch.dtype, device) -> int:
+    """How many of K1's clusters of ``cluster`` blocks the card ``device`` (an
+    index, or the device of the tensor K1 launches on) holds at once."""
     got = _build.library().gaplac_chol_batched_clusters(cluster, dtype == torch.float64,
-                                                        torch.cuda.current_device())
+                                                        _build.device_index(device))
     _build.check(max(0, -got), "cholesky (K1) cluster occupancy")
     return got
 

@@ -288,10 +288,12 @@ def gram_bwd_cuda(ck: CompiledKernel, params: torch.Tensor, X1: torch.Tensor,
     return dparams
 
 
-def gram_bwd_cluster(C: int, dtype: torch.dtype, device: int = 0) -> int:
-    """The cluster size K2b takes for C chains: 16 where C clusters of 16 fit
-    on the card at once, else 8."""
-    got = _build.library().gaplac_gram_bwd_cluster(C, int(dtype == torch.float64), device)
+def gram_bwd_cluster(C: int, dtype: torch.dtype, device) -> int:
+    """The cluster size K2b takes for C chains on the card ``device`` (an
+    index, or the device of the tensor K2b launches on): 16 where C clusters
+    of 16 fit on it at once, else 8."""
+    got = _build.library().gaplac_gram_bwd_cluster(C, int(dtype == torch.float64),
+                                                   _build.device_index(device))
     if got < 0:
         _build.check(-got, "gram backward (K2b) occupancy")
     return got

@@ -139,8 +139,9 @@ def test_no_card_needs_platform_cpu(tmp_path, capsys, monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """No module of the port, and not chip_smoke.py, imports jax or anything
-    of gaplac_tpu; every module imports without matplotlib."""
+    """No module of the port, and neither chip_smoke.py nor chip_parallel.py,
+    imports jax or anything of gaplac_tpu; every module imports without
+    matplotlib."""
     code = (
         "import sys, importlib, pkgutil\n"
         # and without matplotlib: only --plot and fitplot's drawing import it
@@ -150,9 +151,11 @@ def test_port_imports_no_jax():
         "                                                  'gaplac_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        # the state-space path's modules are among them
+        # the state-space path's and the parallel slice's modules are among them
         "assert {'gaplac_tpu_torch.ops.scan', 'gaplac_tpu_torch.ops.markov', "
-        "'gaplac_tpu_torch.ops.markov_ss', 'gaplac_tpu_torch.inference.routing'} <= set(names)\n"
+        "'gaplac_tpu_torch.ops.markov_ss', 'gaplac_tpu_torch.inference.routing', "
+        "'gaplac_tpu_torch.parallel.mesh', 'gaplac_tpu_torch.parallel.multihost', "
+        "'gaplac_tpu_torch.parallel.distributed'} <= set(names)\n"
         "from gaplac_tpu_torch.cli.main import build_parser\n"
         "build_parser().parse_args(['mcmc', 'y ~| SqExp(:x)', '--data', 'd.tsv'])\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
@@ -166,10 +169,11 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
     imported = set()
-    for node in ast.walk(ast.parse((ROOT / "chip_smoke.py").read_text())):
-        if isinstance(node, ast.Import):
-            imported.update(a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom):
-            imported.add(node.module or "")
+    for script in ("chip_smoke.py", "chip_parallel.py"):
+        for node in ast.walk(ast.parse((ROOT / script).read_text())):
+            if isinstance(node, ast.Import):
+                imported.update(a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom):
+                imported.add(node.module or "")
     bad = sorted(m for m in imported if re.match(r"(jax|gaplac_tpu)(\.|$)", m))
     assert not bad, bad

@@ -105,8 +105,22 @@ def test_k1_cluster_sizes(dev, cluster, dtype):
 def test_k1_cluster_occupancy(dev):
     """The card holds at least one cluster of each size K1 launches."""
     for dtype in (torch.float32, torch.float64):
-        assert k1_clusters_that_fit(8, dtype) >= 1
-        assert k1_clusters_that_fit(16, dtype) >= 1
+        assert k1_clusters_that_fit(8, dtype, dev) >= 1
+        assert k1_clusters_that_fit(16, dtype, dev) >= 1
+
+
+def test_occupancy_helpers_take_an_explicit_device_index(dev):
+    """K1's and K2b's occupancy helpers ask the card they are given, by index
+    or by a tensor's device, not device 0 or the current one."""
+    last = torch.cuda.device_count() - 1
+    t = torch.zeros(1, device=torch.device("cuda", last))
+    for dtype in (torch.float32, torch.float64):
+        for cl in (8, 16):
+            assert k1_clusters_that_fit(cl, dtype, last) == k1_clusters_that_fit(cl, dtype,
+                                                                                  t.device) >= 1
+        assert gram_bwd_cluster(1, dtype, last) == gram_bwd_cluster(1, dtype, t.device) == 16
+    with pytest.raises(ValueError, match="CUDA device with an index"):
+        k1_clusters_that_fit(8, torch.float32, torch.device("cpu"))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -264,9 +278,9 @@ def test_k2b_repeats_bit_for_bit_one_chain(dev):
 
 def test_k2b_cluster_size(dev):
     for dtype in (torch.float32, torch.float64):
-        assert gram_bwd_cluster(1, dtype) == 16
-        assert gram_bwd_cluster(8, dtype) in (8, 16)
-        assert gram_bwd_cluster(10 ** 4, dtype) == 8
+        assert gram_bwd_cluster(1, dtype, dev) == 16
+        assert gram_bwd_cluster(8, dtype, dev) in (8, 16)
+        assert gram_bwd_cluster(10 ** 4, dtype, dev) == 8
 
 
 #: K2/K2b at global row offsets (r1, r2), n1 x n2, against a matrix of 300
