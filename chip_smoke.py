@@ -116,6 +116,14 @@ singular members), in the order ex, solve, solve, ex; and SqExp
 shipped) against float32 steps in the modal basis and in one scaled to unit
 variance per mode: the filter's least eigenvalue, the value+grad against
 float64, and whether a report's draws are finite.
+
+    python3 chip_smoke.py --inverse-times
+
+times the inverse from the factor at (8, 4096, 4096) float32: ``ops/
+cholesky.py::cholesky_inverse`` at leaves of 128, 256 and 512 against
+``torch.cholesky_inverse`` and a triangular solve on I followed by one
+product, then ``mvn_logpdf``'s value+grad through its own adjoint against
+the factor's pullback.
 """
 
 from __future__ import annotations
@@ -3354,6 +3362,69 @@ def sde_probes(dev) -> dict:
     return out
 
 
+#: leaves of ``cholesky_inverse`` that ``--inverse-times`` sweeps
+INV_LEAVES = (128, 256, 512)
+
+
+def inverse_times(dev) -> dict:
+    """``--inverse-times``: at (CHAINS, N_BIG, N_BIG) float32 (SqExp grams
+    plus 2.1 I, the dense marginal's diagonal), ``cholesky_inverse`` at each
+    leaf of INV_LEAVES against cuSOLVER's ``torch.cholesky_inverse`` and
+    "trsm on I, then one GEMM" (CUDA events; error against the float64
+    inverse), then one value+grad of ``mvn_logpdf`` through its own adjoint
+    against the factor's pullback (``mvn_logpdf_chol``), with their launches
+    and the adjoints' counters."""
+    from gaplac_tpu_torch.ops import _build, linalg, mvn
+    from gaplac_tpu_torch.ops.cholesky import chol_batched, cholesky_inverse
+
+    A64 = torch.stack([spd(N_BIG, 20 + b, dev, jitter=2.1) for b in range(CHAINS)])
+    A = A64.float()
+    ref = torch.cholesky_inverse(torch.linalg.cholesky(A64))
+    L = chol_batched(A)
+    eye = torch.eye(N_BIG, dtype=A.dtype, device=dev).expand(A.shape)
+
+    def trsm_gemm():
+        W = torch.linalg.solve_triangular(L, eye, upper=False)
+        return W.mT @ W
+
+    routes = {f"halves, leaf {b}": (lambda b=b: cholesky_inverse(L, b)) for b in INV_LEAVES}
+    routes["torch.cholesky_inverse"] = lambda: torch.cholesky_inverse(L)
+    routes["trsm on I, then one GEMM"] = trsm_gemm
+    out = {"inverse": {}}
+    log(f"[inverse] (L L^T)^-1 at ({CHAINS}, {N_BIG}, {N_BIG}) float32")
+    for name, fn in routes.items():
+        r = {"ms": time_ms(fn), "rel_err": rel_err(fn(), ref),
+             "launches": sum(kernels_per_call(fn).values())}
+        out["inverse"][name] = r
+        log(f"  {name}: {r}")
+    del ref, A64
+
+    y = torch.randn((CHAINS, N_BIG), dtype=A.dtype, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+
+    def value_and_grad(route):
+        def fn():
+            K = A.detach().requires_grad_(True)
+            lp = (mvn.mvn_logpdf(K, y) if route == "adjoint"
+                  else mvn.mvn_logpdf_chol(linalg.cholesky(K), y))
+            return torch.autograd.grad(lp.sum(), K)[0]
+        return fn
+
+    grads = {}
+    log(f"[inverse] value+grad of log N(y; 0, K) at ({CHAINS}, {N_BIG}, {N_BIG}) float32")
+    for route in ("adjoint", "pullback"):
+        fn = value_and_grad(route)
+        _build.reset_counts()
+        grads[route] = fn()
+        r = {"adjoints": dict(_build.adjoints), "ms": time_ms(fn),
+             "launches": sum(kernels_per_call(fn).values())}
+        out[route] = r
+        log(f"  {route}: {r}")
+    out["grad_rel_gap"] = rel_err(grads["adjoint"], grads["pullback"])
+    log(f"  the two gradients' relative gap {out['grad_rel_gap']:.3e}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3367,6 +3438,9 @@ def main() -> int:
         return 0
     if "--sde-probes" in sys.argv[1:]:
         print(json.dumps({"card": card, "sde_probes": sde_probes(dev)}, default=str))
+        return 0
+    if "--inverse-times" in sys.argv[1:]:
+        print(json.dumps({"card": card, "inverse_times": inverse_times(dev)}))
         return 0
     k1_err, k1_fit = phase_k1(dev)
     k2_errs = phase_k2(dev)

@@ -9,7 +9,8 @@ but 0.  A failed build raises: nothing falls back.
 
 ``counts`` holds one plain integer per kernel, raised by one each time its
 wrapper launches it, so a run can show that its main path went through the
-kernels.
+kernels; ``adjoints`` one per adjoint of a factorization, raised by one at
+each backward that takes it, so a run can show which one its gradient took.
 """
 
 from __future__ import annotations
@@ -33,6 +34,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: launches per kernel: K1 batched Cholesky, K2 gram, K2b gram backward,
 #: K3 Cholesky of one tile (the blocked factorization's base case)
 counts = {"K1": 0, "K2": 0, "K2b": 0, "K3": 0}
+#: backward calls by adjoint: "gaussian", the dense Gaussian log density's own
+#: (``ops/mvn.py::mvn_logpdf``); "murray", Murray's pullback of a factor
+#: (``ops/cholesky.py::cholesky_pullback``)
+adjoints = {"gaussian": 0, "murray": 0}
 #: wall-clock seconds of the nvcc build in this process (None: cached or not built)
 build_seconds = None
 _lib = None
@@ -58,8 +63,9 @@ _SIGNATURES = {
 
 
 def reset_counts() -> None:
-    for k in counts:
-        counts[k] = 0
+    for d in (counts, adjoints):
+        for k in d:
+            d[k] = 0
 
 
 def _nvcc() -> str:

@@ -10,7 +10,12 @@ positive definite, where ``jnp.linalg.cholesky`` (and K1) return NaN.  K1
 runs one thread-block cluster of 8 or 16 blocks per matrix (``K1_CLUSTER``).
 ``CholeskyBatched`` is the differentiable op: its backward is Murray's
 pullback as in ``_chol_small_bwd``, with two batched triangular solves
-outside any kernel, as in ``gaplac_tpu``.
+outside any kernel, as in ``gaplac_tpu``.  The dense marginal no longer
+takes it: ``ops/mvn.py::mvn_logpdf`` factors through ``linalg.factor`` and
+brings its own adjoint, built on ``cholesky_inverse`` below.  What uses the
+factor itself still does: ``mvn_logpdf_chol`` under autograd, the whitened
+model (f = L z), Laplace's B, the low-rank capacitance and
+``parallel/distributed.py``.
 
 ``blocked_cholesky`` is ``gaplac_tpu``'s recursive 2x2 blocked algorithm
 (``_rchol``, ``_rtrsm_right_lt``, a SYRK): the products go to
@@ -36,6 +41,14 @@ for a matrix right-hand side: the leaves go to
 by halves, as ``blocked_cholesky`` writes its factor.  ``ops/linalg.py``
 does not route ``solve_triangular`` through them (``gaplac_tpu`` does so
 only on the TPU).
+
+``cholesky_inverse`` is (L L^T)^{-1} from the factor by halves, in the
+same style (views, one buffer written in place, batched over leading
+dimensions, one algorithm on CPU and card): L^{-1} by halves, then
+L^{-T} L^{-1} by halves, the products on ``torch.matmul`` and the diagonal
+blocks of ``INV_LEAF`` inverted in one ``torch.linalg.solve_triangular``
+call over all of them.  ``gaplac_tpu`` has no such function: its dense
+marginal differentiates through the factor.
 
 ``cholesky_nocc`` (a TPU workaround) is not ported.
 """
@@ -112,6 +125,7 @@ class CholeskyBatched(torch.autograd.Function):
 def cholesky_pullback(L: torch.Tensor, Lbar: torch.Tensor) -> torch.Tensor:
     """Murray (2016): P = Phi(L^T Lbar), Phi = tril with halved diagonal;
     Abar = L^{-T} (P + P^T) L^{-1} / 2 (the symmetric convention)."""
+    _build.adjoints["murray"] += 1
     P = L.mT @ Lbar
     P = P.tril() - 0.5 * torch.diag_embed(P.diagonal(dim1=-2, dim2=-1))
     S = P + P.mT
@@ -290,3 +304,78 @@ def blocked_solve_lower(L: torch.Tensor, B: torch.Tensor, base: int = CHOL_TILE)
 def blocked_solve_upper(U: torch.Tensor, B: torch.Tensor, base: int = CHOL_TILE) -> torch.Tensor:
     """X with U X = B for upper-triangular U (n, n); B (n,) or (n, k)."""
     return _blocked_solve(_rtrsm_left_upper, U, B, base)
+
+
+# ---------------------------------------------------------------------------
+# the inverse from the factor, by halves
+# ---------------------------------------------------------------------------
+
+#: the leaves of ``cholesky_inverse``: the largest diagonal block whose inverse
+#: goes to ``torch.linalg.solve_triangular`` (from a sweep on the card of 128,
+#: 256 and 512 at (8, 4096, 4096); PERF.md)
+INV_LEAF = 256
+
+
+def _diagonal_blocks(A: torch.Tensor, b: int) -> torch.Tensor:
+    """The (B, n / b, b, b) view of the diagonal blocks of b of a contiguous
+    (B, n, n), n a multiple of b."""
+    B, n, _ = A.shape
+    return A.as_strided((B, n // b, b, b), (n * n, b * (n + 1), n, 1), A.storage_offset())
+
+
+def _rtri_inv(L: torch.Tensor, base: int, W: torch.Tensor) -> None:
+    """W = L^{-1} for lower L, (B, n, n) views, by halves:
+    W11 = L11^{-1};  W22 = L22^{-1};  W21 = -W22 (L21 W11).  The leaves, W's
+    diagonal blocks of ``base``, hold their inverses on entry; W's upper
+    triangle is zero and stays so."""
+    n = L.shape[-1]
+    if n <= base:
+        return
+    h = _split_point(n, base)
+    _rtri_inv(L[:, :h, :h], base, W[:, :h, :h])
+    _rtri_inv(L[:, h:, h:], base, W[:, h:, h:])
+    W[:, h:, :h].baddbmm_(W[:, h:, h:], L[:, h:, :h] @ W[:, :h, :h], beta=0, alpha=-1)
+
+
+def _rlauum(W: torch.Tensor, base: int) -> None:
+    """W <- W^T W in place, for lower W, a (B, n, n) view with a zero upper
+    triangle, by halves: C11 = W11^T W11 + W21^T W21;  C12 = W21^T W22
+    (into the free upper block);  C22 = W22^T W22;  C21 = C12^T."""
+    n = W.shape[-1]
+    if n <= base:
+        W.copy_(W.mT @ W)
+        return
+    h = _split_point(n, base)
+    W11, W12, W21, W22 = W[:, :h, :h], W[:, :h, h:], W[:, h:, :h], W[:, h:, h:]
+    _rlauum(W11, base)
+    W11.baddbmm_(W21.mT, W21)
+    W12.baddbmm_(W21.mT, W22, beta=0)
+    _rlauum(W22, base)
+    W21.copy_(W12.mT)
+
+
+def cholesky_inverse(L: torch.Tensor, base: int = INV_LEAF) -> torch.Tensor:
+    """(L L^T)^{-1} from lower factors L (..., n, n), a new full symmetric
+    tensor: W = L^{-1} by halves (``_rtri_inv``), then W^T W by halves
+    (``_rlauum``), both in one buffer.  About 4 n^3 / 3 flops a matrix on
+    ``torch.matmul``.  The leaves are the diagonal blocks of ``base``,
+    inverted in one call to ``torch.linalg.solve_triangular`` over all of
+    them (n is padded to a multiple of ``base`` with an identity tail).  A
+    member whose factor holds NaN gives NaN in its own inverse only."""
+    n = L.shape[-1]
+    pn = -(-n // base) * base
+    Lb = L.reshape(-1, n, n)
+    if pn != n:
+        P = torch.eye(pn, dtype=L.dtype, device=L.device).repeat(Lb.shape[0], 1, 1)
+        P[:, :n, :n] = Lb
+        Lb = P
+    Lb = Lb.contiguous()
+    W = torch.zeros_like(Lb)
+    Ld = _diagonal_blocks(Lb, base)
+    eye = torch.eye(base, dtype=L.dtype, device=L.device).expand(Ld.shape)
+    _diagonal_blocks(W, base).copy_(torch.linalg.solve_triangular(Ld, eye, upper=False))
+    _rtri_inv(Lb, base, W)
+    _rlauum(W, base)
+    if pn != n:
+        W = W[:, :n, :n].contiguous()
+    return W.reshape(L.shape)

@@ -3,6 +3,17 @@
 axes, the posterior helpers take one (n, n) system as there).
 
 The observation variance ("jitter") 0.1 is the reference's default.
+
+``mvn_logpdf`` brings its own adjoint (``_GaussianLogpdf``): with
+alpha = K^{-1} (y - mean), the gradient in K is (alpha alpha^T - K^{-1}) / 2,
+K^{-1} from the factor by halves (``ops/cholesky.py::cholesky_inverse``,
+about 4 n^3 / 3 flops a matrix), and in y it is -alpha.  The dense marginal
+(``inference/model.py::build_gaussian_marginal``) takes it under every
+sampler, and no longer Murray's pullback of the factor, which does 4 n^3;
+its reports take the same forward.  What uses the factor itself still goes
+through ``linalg.cholesky`` and that pullback: ``mvn_logpdf_chol``, the
+whitened model (f = L z), Laplace's B, the low-rank capacitance
+(``ops/lowrank.py``) and ``parallel/distributed.py``.
 """
 
 from __future__ import annotations
@@ -12,7 +23,8 @@ from typing import NamedTuple
 
 import torch
 
-from gaplac_tpu_torch.ops import linalg
+from gaplac_tpu_torch.ops import _build, linalg
+from gaplac_tpu_torch.ops.cholesky import cholesky_inverse
 
 DEFAULT_JITTER = 0.1
 
@@ -22,11 +34,15 @@ def add_jitter(K: torch.Tensor, jitter) -> torch.Tensor:
     return K + jitter * torch.eye(n, dtype=K.dtype, device=K.device)
 
 
+def _jittered(K: torch.Tensor, jitter) -> torch.Tensor:
+    if isinstance(jitter, (int, float)) and jitter == 0.0:
+        return K
+    return add_jitter(K, jitter)
+
+
 def chol(K: torch.Tensor, jitter=0.0) -> torch.Tensor:
     """Lower Cholesky factor of K (+ jitter I)."""
-    if not (isinstance(jitter, (int, float)) and jitter == 0.0):
-        K = add_jitter(K, jitter)
-    return linalg.cholesky(K)
+    return linalg.cholesky(_jittered(K, jitter))
 
 
 def mvn_logpdf_chol(L: torch.Tensor, y: torch.Tensor, mean=0.0) -> torch.Tensor:
@@ -38,8 +54,43 @@ def mvn_logpdf_chol(L: torch.Tensor, y: torch.Tensor, mean=0.0) -> torch.Tensor:
     return -0.5 * (quad + logdet + n * math.log(2.0 * math.pi))
 
 
+class _GaussianLogpdf(torch.autograd.Function):
+    """log N(r; 0, K) for K (..., n, n) and r (..., n) of the same batch.
+    Forward: L by ``linalg.factor``'s route, a = L^{-1} r.  Backward(g):
+    K^{-1} from L, alpha = K^{-1} r (one product where a triangular solve
+    L^{-T} a is a sequential pass), Kbar = g (alpha alpha^T - K^{-1}) / 2,
+    full and symmetric, written over K^{-1}'s buffer; rbar = -g alpha.  A
+    member whose factor failed gives NaN in its own value and gradient only."""
+
+    @staticmethod
+    def forward(ctx, K, r):
+        L = linalg.factor(K)
+        a = linalg.solve_triangular(L, r, lower=True)
+        ctx.save_for_backward(L, r)
+        logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
+        return -0.5 * (torch.sum(a * a, dim=-1) + logdet + r.shape[-1] * math.log(2.0 * math.pi))
+
+    @staticmethod
+    def backward(ctx, g):
+        L, r = ctx.saved_tensors
+        _build.adjoints["gaussian"] += 1
+        n = L.shape[-1]
+        Kbar = cholesky_inverse(L)
+        Kb = Kbar.view(-1, n, n)
+        alpha = torch.bmm(Kb, r.reshape(-1, n, 1))
+        Kb.baddbmm_(alpha, alpha.mT, beta=-1).mul_(0.5 * g.reshape(-1, 1, 1))
+        return Kbar, -g[..., None] * alpha.view(r.shape)
+
+
 def mvn_logpdf(K: torch.Tensor, y: torch.Tensor, mean=0.0, jitter: float = 0.0) -> torch.Tensor:
-    return mvn_logpdf_chol(chol(K, jitter), y, mean)
+    """log N(y; mean, K + jitter I) for K (..., n, n) and y (..., n), or y (n,)
+    broadcast over K's batch; natural log.  Differentiable in K, y and mean
+    through its own adjoint (module docstring)."""
+    K = _jittered(K, jitter)
+    r = y - mean
+    if r.dim() < K.dim():
+        r = r.expand(*K.shape[:-2], r.shape[-1])
+    return _GaussianLogpdf.apply(K, r)
 
 
 def sample_mvn_chol(gen: torch.Generator, L: torch.Tensor, mean=0.0) -> torch.Tensor:

@@ -369,6 +369,40 @@ def test_fused_factor_matches_two_step(dev, dtype):
     assert float(L.triu(1).abs().max()) == 0.0
 
 
+def test_gaussian_adjoint_at_the_dense_cell_shape(dev):
+    """mvn_logpdf's gradient in K at (8, 4096, 4096) float32 (K1's factor,
+    the inverse by halves) against (alpha alpha^T - K^{-1}) / 2 in float64 on
+    the CPU.  Tolerance: this file's float32 rule, F32_FACTOR times the error
+    of the same formula from cuSOLVER's float32 inverse (torch.linalg.inv), or
+    F32_FLOOR: both invert K in float32, whose error grows with K's condition
+    number (here SqExp grams plus 2.1 I, the dense marginal's diagonal, about
+    700), so no fixed bound fits both that and a better-conditioned K."""
+    from gaplac_tpu_torch.ops import mvn
+
+    C, n = 8, 4096
+    rng = np.random.default_rng(21)
+    x = rng.uniform(-5, 5, (C, n))
+    K64 = (np.exp(-(x[:, :, None] - x[:, None, :]) ** 2 / (2 * 1.5 ** 2))
+           + 2.1 * np.eye(n))
+    y64 = rng.normal(size=(C, n))
+    K = torch.as_tensor(K64, dtype=torch.float32, device=dev).requires_grad_(True)
+    y = torch.as_tensor(y64, dtype=torch.float32, device=dev)
+    before = _build.adjoints["gaussian"]
+    (gK,) = torch.autograd.grad(mvn.mvn_logpdf(K, y).sum(), K)
+    assert _build.adjoints["gaussian"] == before + 1
+
+    def half_gap(Kinv, alpha):
+        return 0.5 * (alpha[:, :, None] * alpha[:, None, :] - Kinv)
+
+    Kt = torch.as_tensor(K64)
+    Ki = torch.cholesky_inverse(torch.linalg.cholesky(Kt))
+    ref = half_gap(Ki, (Ki @ torch.as_tensor(y64)[..., None])[..., 0])
+    Ki32 = torch.linalg.inv(K.detach())
+    plain = half_gap(Ki32, (Ki32 @ y[..., None])[..., 0]).double().cpu()
+    tol = max(F32_FACTOR * _rel(plain, ref), F32_FLOOR)
+    assert _rel(gK.double().cpu(), ref) <= tol
+
+
 @pytest.mark.parametrize("n", [1, 37, 127, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k3_matches_plain(dev, n, dtype):
