@@ -31,6 +31,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from gaplac_tpu_torch.dsl.parser import LikelihoodSpec
 from gaplac_tpu_torch.inference.likelihoods import gaussian_obs_sigma2, make_loglik
@@ -248,7 +249,12 @@ def build_latent_whitened(
     jitter: float = mvn.DEFAULT_JITTER,
     prior_bounds=DEFAULT_PRIOR_BOUNDS,
 ) -> GPModel:
-    """Whitened latent model over v = [u (nh,), z (n,)]: f = L(θ) z."""
+    """Whitened latent model over v = [u (nh,), z (n,)]: f = L(θ) z.
+
+    The log density's forward runs in four profiler ranges,
+    ``gaplac.latent.gram``, ``.factor``, ``.map`` (f = L z) and ``.loglik``,
+    which a trace shows on the host and, with its CUDA activity, on the
+    device."""
     tr = as_prior(prior_bounds)
     nh = len(slot_groups)
     n = y.shape[0]
@@ -260,14 +266,20 @@ def build_latent_whitened(
 
     def _latent_chol(u):
         theta = tr.forward(u)
-        return theta, linalg.cholesky(gram_bound(params_from(theta)))
+        with record_function("gaplac.latent.gram"):
+            K = gram_bound(params_from(theta))
+        with record_function("gaplac.latent.factor"):
+            return theta, linalg.cholesky(K)
 
     def logdensity(v: torch.Tensor) -> torch.Tensor:
         u, z = v[:, :nh], v[:, nh:]
         _, L = _latent_chol(u)
-        f = (L @ z.unsqueeze(-1)).squeeze(-1)
+        with record_function("gaplac.latent.map"):
+            f = (L @ z.unsqueeze(-1)).squeeze(-1)
+        with record_function("gaplac.latent.loglik"):
+            ll = loglik(y, f, aux).sum(-1)
         return (tr.logprior_u(u).sum(-1) - 0.5 * torch.sum(z * z, dim=-1)
-                - 0.5 * n * _LOG_2PI + loglik(y, f, aux).sum(-1))
+                - 0.5 * n * _LOG_2PI + ll)
 
     @torch.no_grad()
     def report(gen: torch.Generator, v: torch.Tensor):

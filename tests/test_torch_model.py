@@ -135,3 +135,42 @@ def test_likelihoods_match_jax(lik):
     got = make_loglik(torch_parse(lik).likelihood)(torch.as_tensor(y), torch.as_tensor(f),
                                                    torch.as_tensor(aux))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-12)
+
+
+def test_poisson_whitened_longitudinal_matches_plain_float64():
+    """The whitened latent model of counts on the longitudinal formula against
+    its definition written out in float64 (gram, ``torch.linalg.cholesky``,
+    f = L z, autograd), and the profiler ranges of its forward."""
+    formula = "y : Poisson ~| OU(:t)*Cat(:PersonID) + Cat(:PersonID) + Noise"
+    rng = np.random.default_rng(9)
+    P, V = 8, 6
+    t = np.sort(rng.uniform(0, 10, (P, V)), axis=1).reshape(-1)
+    pid = np.repeat(np.arange(P), V).astype(float)
+    y = torch.as_tensor(rng.poisson(3.0, P * V).astype(float))
+    spec = torch_parse(formula)
+    ck = compile_formula(spec.formula)
+    X = torch.as_tensor(np.stack([{"t": t, "PersonID": pid}[v] for v in ck.varnames], axis=1))
+    tm = build_model(ck, ["t"], X, y, spec.likelihood)
+    assert (tm.dim, tm.marginalized) == (1 + P * V, False)
+    tt, pp = torch.as_tensor(t), torch.as_tensor(pid)
+    same = (pp[:, None] == pp[None, :]).double()
+
+    def plain(v):
+        ls = 20.0 * torch.sigmoid(v[:, :1])[:, :, None]
+        K = (torch.exp(-(tt[:, None] - tt[None, :]).abs() / ls) * same + same
+             + 1.1 * torch.eye(P * V, dtype=torch.float64))
+        f = (torch.linalg.cholesky(K) @ v[:, 1:, None])[..., 0]
+        u = v[:, 0]
+        return (-torch.nn.functional.softplus(u) - torch.nn.functional.softplus(-u)
+                - 0.5 * (v[:, 1:] ** 2).sum(-1) - 0.5 * P * V * np.log(2 * np.pi)
+                + (y * f - torch.exp(f) - torch.lgamma(y + 1.0)).sum(-1))
+
+    V_ = torch.as_tensor(_points(tm.dim, 1, 10, k=3))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        lp, g = value_and_grad(tm.logdensity)(V_)
+    ref_lp, ref_g = value_and_grad(plain)(V_)
+    np.testing.assert_allclose(lp.numpy(), ref_lp.numpy(), rtol=RTOL)
+    np.testing.assert_allclose(g.numpy(), ref_g.numpy(), rtol=RTOL,
+                               atol=RTOL * float(ref_g.abs().max()))
+    names = {e.name for e in prof.events()}
+    assert {f"gaplac.latent.{s}" for s in ("gram", "factor", "map", "loglik")} <= names
